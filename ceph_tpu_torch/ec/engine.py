@@ -1,0 +1,137 @@
+"""The EC execution engine: a GF(2)-linear code as one bit-matmul.
+
+The port of ``ceph_tpu/ec/engine.py`` for w=8 byte layouts.  Every code
+of this slice is GF(2)-linear, so encode is the coding bit matrix CB
+(8m x 8k) applied to the k data chunks, and decode picks k surviving
+chunks, inverts their rows of ``[I; CB]`` over GF(2) on the host (cached
+per erasure signature, the reference's ErasureCodeIsaTableCache flow),
+and applies the inverse.  Both go through kernel K1
+(``gf2_kernels.gf2_matmul_w8``) on the card.
+
+Other layouts (w=16/32 words, packet layouts) are not in this slice:
+``Layout`` raises ``NotImplementedError`` for them.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from .gf2_kernels import gf2_matmul_w8
+from .gfw import gf2_mat_inv
+
+DECODE_CACHE_SIZE = 512  # erasure signatures kept per code
+
+
+class Layout:
+    """Chunk bytes <-> GF(2) rows.  Only the w=8 byte layout (each byte
+    is 8 bit planes) is ported; it takes any chunk length."""
+
+    def __init__(self, w: int, packetsize: int = 0):
+        if w != 8 or packetsize:
+            raise NotImplementedError(
+                f"layout w={w} packetsize={packetsize} is not ported yet; "
+                f"only the w=8 byte layout is")
+        self.w = w
+        self.packetsize = packetsize
+
+
+class BitCode:
+    """A systematic GF(2)-linear code executed as bit-matmuls.
+
+    ``coding_bm``: (8m, 8k) 0/1 coding bit matrix (rows produce the m
+    parity chunks' bit planes from the k data chunks' bit planes).
+    Tensors the methods return live on ``device``.
+    """
+
+    def __init__(self, k: int, m: int, coding_bm: np.ndarray,
+                 layout: Layout = None, device="cuda"):
+        self.device = resolve_device(device)
+        self.k, self.m = k, m
+        self.layout = layout if layout is not None else Layout(8)
+        w = self.layout.w
+        coding_bm = np.asarray(coding_bm, np.uint8) & 1
+        if coding_bm.shape != (w * m, w * k):
+            raise ValueError(f"coding bit matrix must be {(w * m, w * k)}, "
+                             f"got {coding_bm.shape}")
+        self.coding_bm = coding_bm
+        self.full_bm = np.concatenate(
+            [np.eye(w * k, dtype=np.uint8), coding_bm], axis=0)
+        self._enc_dev = torch.from_numpy(coding_bm.copy()).to(self.device)
+        self._dec_cache: Dict[Tuple[int, ...], tuple] = {}
+
+    def _tensor(self, data) -> torch.Tensor:
+        t = torch.as_tensor(data, dtype=torch.uint8, device=self.device)
+        return t.contiguous()
+
+    # -- encode -------------------------------------------------------
+    def encode(self, data) -> torch.Tensor:
+        """u8[k, L] -> parity u8[m, L]."""
+        data = self._tensor(data)
+        if data.dim() != 2 or data.shape[0] != self.k:
+            raise ValueError(f"expected [k={self.k}, L], got "
+                             f"{tuple(data.shape)}")
+        return gf2_matmul_w8(self._enc_dev, data)
+
+    def encode_batched(self, stripes) -> torch.Tensor:
+        """u8[B, k, L] -> parity u8[B, m, L] in one kernel launch.  The
+        kernel indexes the stripes in place, so nothing is transposed or
+        copied on the way; byte-identical to B ``encode`` calls."""
+        stripes = self._tensor(stripes)
+        if stripes.dim() != 3 or stripes.shape[1] != self.k:
+            raise ValueError(f"expected [B, k={self.k}, L], got "
+                             f"{tuple(stripes.shape)}")
+        return gf2_matmul_w8(self._enc_dev, stripes)
+
+    def all_chunks(self, data) -> torch.Tensor:
+        """u8[k, L] -> u8[k+m, L]: systematic data + parity."""
+        data = self._tensor(data)
+        return torch.cat([data, self.encode(data)], dim=0)
+
+    # -- decode -------------------------------------------------------
+    def _decode_mats(self, present: Tuple[int, ...]):
+        """The GF(2) decode matrix for k survivors, inverted on the host
+        and cached by erasure signature."""
+        mats = self._dec_cache.get(present)
+        if mats is None:
+            w = self.layout.w
+            rows = np.concatenate(
+                [self.full_bm[c * w:(c + 1) * w] for c in present], axis=0)
+            inv = gf2_mat_inv(rows)
+            mats = (torch.from_numpy(inv).to(self.device),)
+            if len(self._dec_cache) >= DECODE_CACHE_SIZE:
+                self._dec_cache.pop(next(iter(self._dec_cache)))
+            self._dec_cache[present] = mats
+        return mats
+
+    def decode_data(self, chunks: Dict[int, object]) -> torch.Tensor:
+        """Recover all k data chunks u8[k, L] from any k available
+        chunks.  ``chunks``: {chunk_id: u8[L]}."""
+        avail = sorted(chunks)
+        if len(avail) < self.k:
+            raise ValueError("need at least k chunks")
+        present = tuple(avail[:self.k])
+        (inv,) = self._decode_mats(present)
+        stack = torch.stack([self._tensor(chunks[i]) for i in present])
+        return gf2_matmul_w8(inv, stack)
+
+    def decode(self, want: Sequence[int],
+               chunks: Dict[int, object]) -> Dict[int, torch.Tensor]:
+        """Reconstruct the wanted chunk ids (data and/or parity).
+        Returns {chunk_id: u8[L]}."""
+        have = {i: self._tensor(c) for i, c in chunks.items()}
+        missing = [i for i in want if i not in have]
+        if missing:
+            data = self.decode_data(have)
+            for i in range(self.k):
+                if i not in have:
+                    have[i] = data[i]
+            if any(i >= self.k for i in missing):
+                parity = self.encode(data)
+                for i in missing:
+                    if i >= self.k:
+                        have[i] = parity[i - self.k]
+        return {i: have[i] for i in want}

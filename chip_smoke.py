@@ -1,0 +1,430 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch + CUDA port (``ceph_tpu_torch``) on one NVIDIA GPU
+and check every kernel of its main path.
+
+Run from the root of the repository:
+
+    python3 chip_smoke.py
+
+Phases (any failure raises and the script exits non-zero):
+
+1. Build the CUDA kernels from ``ceph_tpu_torch/csrc`` (one nvcc each,
+   started together).
+2. K1 ``gf2_matmul_w8`` against its plain PyTorch version on the card,
+   byte for byte: (k, m, L) in {(4,2,512), (8,3,2048), (8,3,777),
+   (8,3,4 MiB)}, a batch of odd-length stripes, the 64x64 decode
+   inverse for erasures [0, 1], and the main path's two shapes (encode
+   of 4 x 8 x 1 MiB, decode of 8 x 4 MiB).
+3. K2 ``crush_rule_batched`` against its plain version on ``map_big10k``
+   (rules 0 and 1) for 4,096 random xs and for the main path's 65,536
+   PGs, then against every golden case of the four in-scope maps in
+   ``tests/golden``.
+4. The main path at full width, with every launch counter set to 0
+   first: the flagship step (CRUSH ``map_big10k`` rule 0, numrep 3, over
+   65,536 PGs, plus RS(8,3) ``encode_batched`` of 4 stripes x 8 x 1 MiB)
+   for 8 iterations, rule 1 (numrep 11) over the same PGs, and RS
+   ``decode`` of erasures [0, 1].  The decode must give the data back,
+   and the first 256 PGs of both rules must match the golden vectors
+   (as ``bench.py:_golden_check`` does).
+
+Tolerance is zero everywhere: every output is an integer.  Kernel times
+come from CUDA events, plain versions' times too; each bound is the
+larger of bytes moved over the card's memory rate and operations over
+its peak rate for their type (published H100 SXM figures).  It prints
+the card's name and power limit, one line per kernel, one ``kernels``
+JSON line, the flagship rates, and last the contract line
+``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
+the rest of the repository beside it, it exits non-zero and prints no
+result.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+GOLDEN = os.path.join(REPO, "tests", "golden")
+
+# Published NVIDIA H100 SXM peaks (data sheet, dense, at 700 W).
+HBM_BYTES_PER_S = 3.35e12
+INT8_TENSOR_OPS_PER_S = 1979e12
+# 64 INT32 lanes per SM against 128 FP32 lanes whose 67 TFLOP/s counts
+# an FMA as 2: one integer op per lane per clock is 67e12 / 4.
+INT32_OPS_PER_S = 67e12 / 4
+# Integer ops of one straw2 item draw in csrc/crush_rule.cu: hash3 is 3
+# xors plus 5 mix rounds of 36 ops (183), crush_ln about 15, the 64-bit
+# division counted as 1, mask/compare/select 3.
+OPS_PER_DRAW = 202
+
+GOLDEN_MAPS = ("map_big10k", "map_flat12", "map_tree3", "map_weird")
+PGS = 65536
+ITERS = 8
+EC_B, EC_K, EC_M, EC_CHUNK = 4, 8, 3, 1 << 20
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def gpu_name_and_limit():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters, warmup=1):
+    """Mean milliseconds of ``fn(i)`` over ``iters`` calls, by CUDA
+    events around the whole run, after ``warmup`` calls."""
+    import torch
+
+    for i in range(warmup):
+        fn(i)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(i)
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def max_abs_err(a, b):
+    import torch
+
+    if a.shape != b.shape:
+        raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
+    if a.numel() == 0:
+        return 0
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
+
+
+def load_map(name):
+    from ceph_tpu_torch.crush.map import CrushMap
+
+    with open(os.path.join(GOLDEN, f"{name}.json")) as f:
+        d = json.load(f)
+    return CrushMap.from_dict(d["map"]), d["cases"]
+
+
+def golden_check(case, res, lens, label, n=256):
+    res, lens = res[:n].cpu().numpy(), lens[:n].cpu().numpy()
+    for i in range(n):
+        want = case["results"][i]
+        got = [int(v) for v in res[i, :lens[i]]]
+        if got != want:
+            raise AssertionError(f"golden mismatch at x={case['x0'] + i} "
+                                 f"on {label}: {got} != {want}")
+
+
+# -- phase 2 ----------------------------------------------------------
+
+
+def phase_k1(dev):
+    import torch
+
+    from ceph_tpu_torch.ec import gf
+    from ceph_tpu_torch.ec.engine import BitCode
+    from ceph_tpu_torch.ec.gf2_kernels import (gf2_matmul_w8,
+                                               gf2_matmul_w8_plain)
+
+    rng = np.random.default_rng(1)
+    err = 0
+
+    def check(bm, data, label):
+        nonlocal err
+        got = gf2_matmul_w8(bm, data)
+        want = gf2_matmul_w8_plain(bm, data)
+        e = max_abs_err(got, want)
+        if e:
+            raise AssertionError(f"K1 differs from plain on {label}: {e}")
+        err = max(err, e)
+        log(f"k1 check {label}: equal")
+        return got
+
+    for k, m, L in ((4, 2, 512), (8, 3, 2048), (8, 3, 777),
+                    (8, 3, 4 << 20)):
+        G = gf.rs_vandermonde_matrix(k, m)
+        bm = torch.from_numpy(gf.expand_bitmatrix(G[k:])).to(dev)
+        data = torch.from_numpy(
+            rng.integers(0, 256, (k, L), dtype=np.uint8)).to(dev)
+        check(bm, data, f"k={k} m={m} L={L}")
+    bm83 = gf.expand_bitmatrix(gf.rs_vandermonde_matrix(8, 3)[8:])
+    stripes = torch.from_numpy(
+        rng.integers(0, 256, (3, 8, 777), dtype=np.uint8)).to(dev)
+    check(torch.from_numpy(bm83).to(dev), stripes, "B=3 k=8 m=3 L=777")
+
+    code = BitCode(8, 3, bm83, device=dev)
+    data = torch.from_numpy(
+        rng.integers(0, 256, (8, 777), dtype=np.uint8)).to(dev)
+    full = code.all_chunks(data)
+    (inv,) = code._decode_mats(tuple(range(2, 10)))
+    got = check(inv, full[2:10].contiguous(), "decode inverse 64x64 "
+                "erasures [0, 1] L=777")
+    if not torch.equal(got, data):
+        raise AssertionError("K1 decode did not give the data back")
+
+    # time at the main path's shape: 4 stripes x 8 x 1 MiB -> 4 x 3 x 1 MiB,
+    # cycling 4 input sets (176 MiB) so no launch finds its data in L2
+    bm = torch.from_numpy(bm83).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    bufs = [torch.randint(0, 256, (EC_B, EC_K, EC_CHUNK), dtype=torch.uint8,
+                          device=dev, generator=gen) for _ in range(4)]
+    # the main path's shapes: encode_batched [4, 8, 1 MiB] and the decode
+    # of erasures [0, 1] over [8, 4 MiB] through the 64x64 inverse
+    check(bm, bufs[0], f"main-path encode [{EC_B}, {EC_K}, {EC_CHUNK}]")
+    flat = bufs[1].transpose(0, 1).reshape(EC_K, EC_B * EC_CHUNK)
+    survivors = code.all_chunks(flat)[2:10].contiguous()
+    got = check(inv, survivors,
+                f"main-path decode [{EC_K}, {EC_B * EC_CHUNK}]")
+    if not torch.equal(got, flat):
+        raise AssertionError("K1 main-path decode did not give the data "
+                             "back")
+    dec_ms = cuda_ms(lambda i: gf2_matmul_w8(inv, survivors), 10, warmup=1)
+    dec_bound_ms = (2 * survivors.numel() + inv.numel()) \
+        / HBM_BYTES_PER_S * 1e3
+    del flat, survivors, got
+    ms = cuda_ms(lambda i: gf2_matmul_w8(bm, bufs[i % 4]), 20, warmup=2)
+    plain_ms = cuda_ms(lambda i: gf2_matmul_w8_plain(bm, bufs[i % 4]), 3)
+    nbytes = EC_B * (EC_K + EC_M) * EC_CHUNK + bm.numel()
+    ops = 2 * (8 * EC_M) * (8 * EC_K) * EC_B * EC_CHUNK
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT8_TENSOR_OPS_PER_S * 1e3
+    del bufs
+    torch.cuda.empty_cache()
+    return {"name": "gf2_matmul_w8", "route": "cuda",
+            "source": "ceph_tpu_torch/csrc/gf2_matmul_w8.cu",
+            "replaces": "ceph_tpu/ec/pallas_kernels.py:34",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None,
+            "shape": f"[{EC_B}, {EC_K}, {EC_CHUNK}] -> "
+                     f"[{EC_B}, {EC_M}, {EC_CHUNK}] u8; decode "
+                     f"[{EC_K}, {EC_B * EC_CHUNK}] through the 64x64 "
+                     f"inverse: kernel_ms={dec_ms:.4f} "
+                     f"bound_ms={dec_bound_ms:.4f} (bytes)"}
+
+
+# -- phase 3 ----------------------------------------------------------
+
+
+def phase_k2(dev):
+    import torch
+
+    from ceph_tpu_torch.crush.map_arrays import as_i32
+    from ceph_tpu_torch.crush.mapper import (BatchedMapper,
+                                             crush_rule_batched,
+                                             map_batch_plain)
+
+    err = 0
+    cmap, cases = load_map("map_big10k")
+    mapper = BatchedMapper(cmap, device=dev)
+    weight = as_i32(np.asarray(cases[0]["weight"], np.uint32), dev)
+    rng = np.random.default_rng(3)
+    xs = as_i32(rng.integers(0, 2 ** 32, 4096, dtype=np.uint64)
+                .astype(np.uint32), dev)
+    pgs = torch.arange(PGS, dtype=torch.int32, device=dev)
+    for ruleno, numrep in ((0, 3), (1, 11)):
+        prog = mapper.program(ruleno, numrep)
+        for label, x in (("4096 random xs", xs),
+                         (f"main-path PGs [0, {PGS})", pgs)):
+            got = crush_rule_batched(mapper.arrays, prog, weight, x)
+            want = map_batch_plain(mapper.arrays, prog, weight, x)
+            e = max(max_abs_err(got[0], want[0]),
+                    max_abs_err(got[1], want[1]))
+            if e:
+                raise AssertionError(f"K2 differs from plain on map_big10k "
+                                     f"rule {ruleno}, {label}: {e}")
+            err = max(err, e)
+            log(f"k2 check map_big10k rule {ruleno} numrep {numrep} "
+                f"{label}: equal")
+
+    for name in GOLDEN_MAPS:
+        gmap, gcases = load_map(name)
+        gm = BatchedMapper(gmap, device=dev)
+        for case in gcases:
+            n = case["x1"] - case["x0"]
+            xs_c = np.arange(case["x0"], case["x1"], dtype=np.uint32)
+            res, lens = gm.map_batch(case["ruleno"], xs_c, case["numrep"],
+                                     np.asarray(case["weight"], np.uint32))
+            golden_check(case, res, lens, f"{name} rule {case['ruleno']}",
+                         n=n)
+        log(f"k2 golden {name}: {len(gcases)} cases equal")
+
+    # time at the main path's shape: rule 0, numrep 3, 65,536 PGs
+    prog = mapper.program(0, 3)
+    batches = [torch.arange(i * PGS, (i + 1) * PGS, dtype=torch.int32,
+                            device=dev) for i in range(ITERS)]
+    draws = torch.zeros(PGS, dtype=torch.int32, device=dev)
+    total_draws = 0
+    for b in batches:
+        crush_rule_batched(mapper.arrays, prog, weight, b, draws=draws)
+        total_draws += int(draws.sum().item())
+    draws_per_launch = total_draws / len(batches)
+    ms = cuda_ms(lambda i: crush_rule_batched(mapper.arrays, prog, weight,
+                                              batches[i % ITERS]),
+                 ITERS, warmup=1)
+    plain_ms = cuda_ms(lambda i: map_batch_plain(mapper.arrays, prog,
+                                                 weight, batches[0]), 1)
+    a = mapper.arrays
+    nbytes = (PGS * 4 + PGS * 4 * 4 + weight.numel() * 4
+              + sum(t.numel() * 4 for t in (a.alg, a.btype, a.size,
+                                             a.items, a.weights))
+              + 514 * 8)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = draws_per_launch * OPS_PER_DRAW / INT32_OPS_PER_S * 1e3
+    return {"name": "crush_rule_batched", "route": "cuda",
+            "source": "ceph_tpu_torch/csrc/crush_rule.cu",
+            "replaces": "ceph_tpu/crush/mapper_jax.py:628",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None,
+            "shape": f"map_big10k rule 0 numrep 3, {PGS} PGs, "
+                     f"{draws_per_launch / PGS:.1f} draws per PG"}
+
+
+# -- phase 4 ----------------------------------------------------------
+
+
+def phase_flagship(dev):
+    import torch
+
+    from ceph_tpu_torch.crush.map_arrays import as_i32
+    from ceph_tpu_torch.crush.mapper import build_rule_fn
+    from ceph_tpu_torch.ec import gf
+    from ceph_tpu_torch.flagship import flagship
+
+    cmap, cases = load_map("map_big10k")
+    fs = flagship(cmap, ruleno=0, result_max=3, device=dev)
+    rule1, _, _ = build_rule_fn(cmap, 1, 11, device=dev)
+    weight = as_i32(np.asarray(cases[0]["weight"], np.uint32), dev)
+    batches = [torch.arange(i * PGS, (i + 1) * PGS, dtype=torch.int32,
+                            device=dev) for i in range(ITERS)]
+    gen = torch.Generator(device=dev).manual_seed(4)
+    stripes = torch.randint(0, 256, (EC_B, EC_K, EC_CHUNK),
+                            dtype=torch.uint8, device=dev, generator=gen)
+    fs.step(fs.arrays, weight, batches[0], stripes)   # warm-up
+    rule1(fs.arrays, weight, batches[0])
+    torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    for i in range(ITERS):
+        res, lens, parity = fs.step(fs.arrays, weight, batches[i], stripes)
+        if i == 0:
+            res0, lens0 = res, lens
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / ITERS
+
+    t0 = time.perf_counter()
+    for b in batches:
+        res1, lens1 = rule1(fs.arrays, weight, b)
+        if b is batches[0]:
+            res1_0, lens1_0 = res1, lens1
+    torch.cuda.synchronize()
+    rule1_rate = PGS * ITERS / (time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    for b in batches:
+        fs.rule_fn(fs.arrays, weight, b)
+    torch.cuda.synchronize()
+    rule0_rate = PGS * ITERS / (time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    for _ in range(ITERS):
+        parity = fs.code.encode_batched(stripes)
+    torch.cuda.synchronize()
+    enc_gbps = EC_B * EC_K * EC_CHUNK * ITERS / (time.perf_counter() - t0) / 1e9
+
+    data = stripes.transpose(0, 1).reshape(EC_K, EC_B * EC_CHUNK)
+    par2d = parity.transpose(0, 1).reshape(EC_M, EC_B * EC_CHUNK)
+    chunks = {i: data[i] for i in range(EC_K)}
+    chunks.update({EC_K + i: par2d[i] for i in range(EC_M)})
+    fs.code.decode(chunks, [0, 1])   # warm-up: inverts and caches the matrix
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ITERS):
+        out = fs.code.decode(chunks, [0, 1])
+    torch.cuda.synchronize()
+    dec_gbps = EC_K * EC_B * EC_CHUNK * ITERS / (time.perf_counter() - t0) / 1e9
+
+    # outputs: shapes, golden vectors, parity against the host GF(2^8)
+    # reference on a slice, decode round trip
+    if res0.shape != (PGS, 3) or lens0.shape != (PGS,):
+        raise AssertionError("flagship CRUSH output has the wrong shape")
+    if parity.shape != (EC_B, EC_M, EC_CHUNK):
+        raise AssertionError("flagship parity has the wrong shape")
+    golden_check(cases[0], res0, lens0, "flagship map_big10k rule 0")
+    golden_check(cases[1], res1_0, lens1_0, "flagship map_big10k rule 1")
+    cut = 4096
+    want = gf.encode_ref(fs.code.G, stripes[0, :, :cut].cpu().numpy())
+    if not np.array_equal(parity[0, :, :cut].cpu().numpy(), want):
+        raise AssertionError("flagship parity differs from encode_ref")
+    if not torch.equal(out, data):
+        raise AssertionError("decode of erasures [0, 1] did not give the "
+                             "data back")
+    return {"step_ms": step_s * 1e3,
+            "crush_rule0_mappings_per_s": rule0_rate,
+            "crush_rule1_mappings_per_s": rule1_rate,
+            "ec_encode_gbps": enc_gbps, "ec_decode_gbps": dec_gbps}
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    from ceph_tpu_torch import build
+    from ceph_tpu_torch.crush import mapper
+    from ceph_tpu_torch.ec import gf2_kernels
+
+    card = gpu_name_and_limit()
+    log(f"gpu: {card}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    dev = torch.device("cuda")
+
+    t0 = time.perf_counter()
+    took = build.build(verbose=True)
+    log(f"build: {time.perf_counter() - t0:.1f} s "
+        + json.dumps({k: round(v, 1) for k, v in took.items()}))
+
+    k1 = phase_k1(dev)
+    k2 = phase_k2(dev)
+
+    gf2_kernels.gf2_matmul_w8.launches = 0
+    mapper.crush_rule_batched.launches = 0
+    flag = phase_flagship(dev)
+    k1["launches"] = gf2_kernels.gf2_matmul_w8.launches
+    k2["launches"] = mapper.crush_rule_batched.launches
+    for k in (k1, k2):
+        if k["launches"] < 1:
+            raise AssertionError(f"{k['name']} was not launched on the "
+                                 f"main path")
+        log(f"kernel {k['name']}: kernel_ms={k['ms']:.4f} "
+            f"plain_ms={k['plain_ms']:.3f} bound_ms={k['bound_ms']:.4f} "
+            f"({k['bound_by']}) launches={k['launches']} at {k['shape']}")
+    keys = ("name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    log(json.dumps({"kernels": [{key: k[key] for key in keys}
+                                for k in (k1, k2)]}))
+    log("flagship: " + json.dumps({"card": card, **flag}))
+    log(f"gpu: {card}")
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,124 @@
+"""The port's flagship step against ``__graft_entry__.entry()``'s on the
+same inputs, the port's isolation from JAX, and its device default.
+
+Outputs are OSD indices and parity bytes, so the tolerance is zero.
+"""
+
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from __graft_entry__ import entry
+
+from ceph_tpu_torch.convert import bitcode_from_numpy, map_arrays_from_numpy
+from ceph_tpu_torch.crush.builder import sample_cluster_map
+from ceph_tpu_torch.crush.map_arrays import as_i32
+from ceph_tpu_torch.crush.mapper import BatchedMapper, build_rule_fn
+from ceph_tpu_torch.ec import gf
+from ceph_tpu_torch.ec.engine import BitCode
+from ceph_tpu_torch.ec.rs import RSCode
+from ceph_tpu_torch.flagship import flagship
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+CPU = "cpu"
+
+
+def _inputs(seed, n_osds=48):
+    rng = np.random.default_rng(seed)
+    weight = np.full(n_osds, 0x10000, np.uint32)
+    weight[rng.choice(n_osds, 5, replace=False)] = 0
+    weight[rng.choice(n_osds, 5, replace=False)] = 0x6000
+    xs = rng.integers(0, 2 ** 32, 256, dtype=np.uint64).astype(np.uint32)
+    stripes = rng.integers(0, 256, (8, 4096), dtype=np.uint8)
+    return weight, xs, stripes
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_step_matches_jax_entry(seed):
+    jstep, (A, _, _, _) = entry()
+    weight, xs, stripes = _inputs(seed)
+    jres, jlens, jparity = jstep(A, jnp.asarray(weight), jnp.asarray(xs),
+                                 jnp.asarray(stripes))
+
+    fs = flagship(device=CPU)
+    res, lens, parity = fs.step(fs.arrays, as_i32(weight, CPU),
+                                as_i32(xs, CPU), stripes)
+    assert np.array_equal(res.numpy(), np.asarray(jres))
+    assert np.array_equal(lens.numpy(), np.asarray(jlens))
+    assert np.array_equal(parity.numpy(), np.asarray(jparity))
+
+
+def test_step_defaults_mirror_entry():
+    fs = flagship(device=CPU)
+    arrays, weight, xs, stripes = fs.example_args()
+    res, lens, parity = fs.step(arrays, weight, xs, stripes)
+    assert res.shape == (256, 3) and (lens == 3).all()
+    assert parity.shape == (3, 4096) and not parity.any()
+
+
+def test_step_batched_stripes_equal_per_stripe_encode():
+    fs = flagship(device=CPU)
+    weight, xs, _ = _inputs(2)
+    rng = np.random.default_rng(2)
+    stripes = rng.integers(0, 256, (4, 8, 1000), dtype=np.uint8)
+    _, _, parity = fs.step(fs.arrays, as_i32(weight, CPU), as_i32(xs, CPU),
+                           stripes)
+    assert parity.shape == (4, 3, 1000)
+    for b in range(4):
+        assert np.array_equal(parity[b].numpy(),
+                              gf.encode_ref(fs.code.G, stripes[b]))
+
+
+def test_port_never_imports_jax_or_the_jax_package():
+    modules = sorted(
+        "ceph_tpu_torch." + str(p.relative_to(REPO / "ceph_tpu_torch"))
+        .replace(os.sep, ".")[:-3]
+        for p in (REPO / "ceph_tpu_torch").rglob("*.py")
+        if p.name != "__init__.py")
+    code = (
+        "import importlib, sys\n"
+        f"for name in {modules!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or\n"
+        "       m.startswith('jax.') or m == 'ceph_tpu' or\n"
+        "       m.startswith('ceph_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print(len(sys.modules))\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "ceph_tpu_torch.crush.mapper" in modules
+    assert "ceph_tpu_torch.flagship" in modules
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    cmap = sample_cluster_map()
+    bm = gf.expand_bitmatrix(gf.rs_vandermonde_matrix(8, 3)[8:])
+    calls = [
+        lambda: RSCode(8, 3),
+        lambda: BitCode(8, 3, bm),
+        lambda: bitcode_from_numpy(bm, 8, 3),
+        lambda: BatchedMapper(cmap),
+        lambda: build_rule_fn(cmap, 0, 3),
+        lambda: flagship(),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    from ceph_tpu.crush.map_arrays import encode_map as jencode_map
+    from ceph_tpu.crush.builder import sample_cluster_map as jsample
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        map_arrays_from_numpy(*jencode_map(jsample()))

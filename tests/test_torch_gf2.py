@@ -1,0 +1,162 @@
+"""The port's GF(2) bit-matmul (K1's plain version) and EC engine,
+held byte for byte against ``ceph_tpu`` on the CPU.
+
+Inputs come from numpy with fixed seeds and go through both packages.
+Every output is integer, so the tolerance is zero: byte-equal.  The
+Pallas kernel runs in interpret mode, as ``tests/test_pallas.py`` runs
+it.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ceph_tpu.ec import gf as jgf
+from ceph_tpu.ec.engine import BitCode as JBitCode
+from ceph_tpu.ec.engine import Layout as JLayout
+from ceph_tpu.ec.pallas_kernels import fused_gf2_matmul_w8
+from ceph_tpu.ec.rs_jax import RSCode as JRSCode
+
+from ceph_tpu_torch.convert import bitcode_from_numpy
+from ceph_tpu_torch.ec import gf
+from ceph_tpu_torch.ec.engine import BitCode, Layout
+from ceph_tpu_torch.ec.gf2_kernels import gf2_matmul_w8, gf2_matmul_w8_plain
+from ceph_tpu_torch.ec.gfw import gf2_mat_inv
+from ceph_tpu_torch.ec.rs import RSCode
+
+CPU = "cpu"
+
+
+def _bm(k, m):
+    return gf.expand_bitmatrix(gf.rs_vandermonde_matrix(k, m)[k:])
+
+
+@pytest.mark.parametrize("k,m,L", [(4, 2, 512), (8, 3, 2048), (2, 1, 100),
+                                   (5, 4, 513), (8, 3, 777)])
+def test_plain_matches_pallas_kernel(k, m, L):
+    rng = np.random.default_rng(k * 100 + m + L)
+    bm = _bm(k, m)
+    data = rng.integers(0, 256, (k, L), dtype=np.uint8)
+    want = np.asarray(fused_gf2_matmul_w8(bm, data, interpret=True))
+    got = gf2_matmul_w8_plain(torch.from_numpy(bm), torch.from_numpy(data))
+    assert got.dtype == torch.uint8
+    assert np.array_equal(got.numpy(), want)
+    # the wrapper takes the plain version for CPU tensors
+    assert np.array_equal(
+        gf2_matmul_w8(torch.from_numpy(bm), torch.from_numpy(data)).numpy(),
+        want)
+
+
+def test_plain_decode_inverse_matches_pallas_kernel():
+    rng = np.random.default_rng(3)
+    k, m, L = 8, 3, 777
+    data = rng.integers(0, 256, (k, L), dtype=np.uint8)
+    jcode = JBitCode(k, m, _bm(k, m), JLayout(8))
+    code = BitCode(k, m, _bm(k, m), device=CPU)
+    present = tuple(range(2, 2 + k))           # data chunks 0, 1 lost
+    (jinv,) = jcode._decode_mats(present)
+    (inv,) = code._decode_mats(present)
+    assert np.array_equal(inv.numpy(), np.asarray(jinv))
+    full = code.all_chunks(torch.from_numpy(data))
+    stack = full[list(present)]
+    want = np.asarray(fused_gf2_matmul_w8(np.asarray(jinv),
+                                          stack.numpy(), interpret=True))
+    got = gf2_matmul_w8_plain(inv, stack).numpy()
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, data)
+
+
+def test_plain_batched_equals_per_stripe():
+    rng = np.random.default_rng(5)
+    bm = torch.from_numpy(_bm(8, 3))
+    stripes = torch.from_numpy(rng.integers(0, 256, (3, 8, 301),
+                                            dtype=np.uint8))
+    got = gf2_matmul_w8_plain(bm, stripes)
+    assert got.shape == (3, 3, 301)
+    for b in range(3):
+        assert torch.equal(got[b], gf2_matmul_w8_plain(bm, stripes[b]))
+
+
+def test_gf2_mat_inv_is_an_inverse():
+    bm = _bm(8, 3)
+    full = np.concatenate([np.eye(64, dtype=np.uint8), bm], axis=0)
+    rows = full[16:80]
+    inv = gf2_mat_inv(rows)
+    assert np.array_equal((inv.astype(np.int64) @ rows) % 2,
+                          np.eye(64, dtype=np.int64))
+
+
+def test_wrapper_rejects_bad_inputs():
+    bm = torch.from_numpy(_bm(4, 2))
+    with pytest.raises(TypeError):
+        gf2_matmul_w8(bm, torch.zeros((4, 16), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        gf2_matmul_w8(bm, torch.zeros((5, 16), dtype=torch.uint8))
+    with pytest.raises(ValueError):
+        gf2_matmul_w8(bm[:, :30], torch.zeros((4, 16), dtype=torch.uint8))
+
+
+@pytest.mark.parametrize("technique", ["reed_sol_van", "cauchy"])
+@pytest.mark.parametrize("k,m,L", [(8, 3, 4096), (4, 2, 777)])
+def test_rscode_matches_jax_and_host_reference(technique, k, m, L):
+    rng = np.random.default_rng(k + m + L)
+    data = rng.integers(0, 256, (k, L), dtype=np.uint8)
+    code = RSCode(k, m, technique, device=CPU)
+    jcode = JRSCode(k, m, technique)
+    assert np.array_equal(code.G, jcode.G)
+    parity = code.encode_np(data)
+    assert np.array_equal(parity, np.asarray(jcode.encode(data)))
+    assert np.array_equal(parity, gf.encode_ref(code.G, data))
+    full = code.all_chunks(data).numpy()
+    assert np.array_equal(full, np.asarray(jcode.all_chunks(data)))
+    chunks = {i: full[i] for i in range(k + m)}
+    for erasures in ([0, 1], [1, k], list(range(k, k + m))[:m]):
+        got = code.decode_np(chunks, erasures)
+        assert np.array_equal(got, data)
+        assert np.array_equal(got, np.asarray(jcode.decode(chunks,
+                                                            erasures)))
+        assert np.array_equal(got, gf.decode_ref(code.G, chunks, erasures,
+                                                 k))
+
+
+def test_bitcode_batched_and_decode_match_jax():
+    rng = np.random.default_rng(11)
+    k, m, B, L = 8, 3, 4, 513
+    stripes = rng.integers(0, 256, (B, k, L), dtype=np.uint8)
+    jcode = JBitCode(k, m, _bm(k, m), JLayout(8))
+    code = bitcode_from_numpy(jcode.coding_bm, k, m, device=CPU)
+    got = code.encode_batched(stripes).numpy()
+    assert np.array_equal(got, np.asarray(jcode.encode_batched(stripes)))
+    full = np.concatenate([stripes[0], got[0]], axis=0)
+    have = {i: full[i] for i in range(k + m) if i not in (2, 9)}
+    want = jcode.decode([2, 9, 10], have)
+    out = code.decode([2, 9, 10], have)
+    for i in (2, 9, 10):
+        assert np.array_equal(out[i].numpy(), np.asarray(want[i]))
+        assert np.array_equal(out[i].numpy(), full[i])
+    assert np.array_equal(code.decode_data(have).numpy(),
+                          np.asarray(jcode.decode_data(have)))
+
+
+def test_decode_cache_is_bounded():
+    code = BitCode(4, 2, _bm(4, 2), device=CPU)
+    code._decode_mats((0, 1, 2, 3))
+    assert (0, 1, 2, 3) in code._dec_cache
+    for sig in [(0, 1, 2, 4), (0, 1, 2, 5), (0, 1, 3, 4)]:
+        code._decode_mats(sig)
+    assert len(code._dec_cache) == 4
+
+
+def test_host_tables_match_jax_package():
+    assert np.array_equal(gf.GF_MUL, jgf.GF_MUL)
+    for k, m in [(8, 3), (4, 2), (10, 4)]:
+        assert np.array_equal(gf.rs_vandermonde_matrix(k, m),
+                              jgf.rs_vandermonde_matrix(k, m))
+        assert np.array_equal(gf.rs_cauchy_matrix(k, m),
+                              jgf.rs_cauchy_matrix(k, m))
+
+
+@pytest.mark.parametrize("w,packetsize", [(16, 0), (32, 0), (8, 64)])
+def test_other_layouts_are_not_ported(w, packetsize):
+    with pytest.raises(NotImplementedError):
+        Layout(w, packetsize)
