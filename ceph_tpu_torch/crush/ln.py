@@ -14,12 +14,18 @@ from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
 
 from ._ln_tables import LL_TBL, RH_LH_TBL
 
 S64_MIN = -(2 ** 63)
 M32 = 0xFFFFFFFF
+# straw2_magic's layout, which csrc/crush_rule.cu mirrors (kPreshift =
+# 64 - MAGIC_NUM_BITS, kMagicShiftAt): numerators 2^48 - crush_ln(u)
+# fit in MAGIC_NUM_BITS bits, and the shift sits from bit MAGIC_SHIFT_AT.
+MAGIC_NUM_BITS = 49
+MAGIC_SHIFT_AT = 58
 
 
 def ln_tables(device) -> torch.Tensor:
@@ -87,3 +93,25 @@ def straw2_draw(u16: torch.Tensor, weight: torch.Tensor,
     wsafe = torch.where(w == 0, torch.ones_like(w), w)
     draw = -torch.div(neg, wsafe, rounding_mode="trunc")
     return torch.where(w == 0, torch.full_like(draw, S64_MIN), draw)
+
+
+def straw2_magic(weights) -> np.ndarray:
+    """u64 per item weight: the exact reciprocal the kernel multiplies
+    by in place of the straw2 division.
+
+    For ``w > 0``, with ``l = ceil(log2 w)`` and ``m = ceil(2^(49+l) /
+    w)``, ``floor(n / w) == mulhi64(n << 15, m) >> l`` for every
+    ``0 <= n < 2^49``: ``m * w - 2^(49+l) < w <= 2^l``, so ``n * m /
+    2^(49+l)`` exceeds ``n / w`` by less than ``1 / w``.  Stored as ``m |
+    l << 58`` (``m <= 2^50``); a zero weight gives 0.  ``weights``: u32
+    values (numpy, any integer dtype; int32 bit patterns are read as
+    u32)."""
+    w = np.asarray(weights).astype(np.int64) & M32
+    vals, inv = np.unique(w, return_inverse=True)
+    table = np.zeros(len(vals), np.uint64)
+    for j, v in enumerate(vals.tolist()):
+        if v:
+            shift = (v - 1).bit_length()
+            m = -(-(1 << (MAGIC_NUM_BITS + shift)) // v)
+            table[j] = m | (shift << MAGIC_SHIFT_AT)
+    return table[inv.reshape(w.shape)]

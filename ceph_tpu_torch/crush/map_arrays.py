@@ -6,7 +6,9 @@ bucket index (-1 - id), every per-item field a column padded to the
 widest bucket.  ``encode_map`` lowers a map to numpy; ``to_device``
 moves the arrays to tensors, with u32 fields carried as int32 bit
 patterns (torch has no u32 arithmetic; the kernel reads them back as
-u32 and the plain version widens them to int64).
+u32 and the plain version widens them to int64).  The kernel's straw2
+reciprocals (``MapArrays.magic``) are derived from the item weights,
+never stored beside them.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from . import constants as C
+from .ln import straw2_magic
 from .map import CrushMap
 
 
@@ -44,6 +47,27 @@ class MapArrays:
     size: object      # i32[B]
     items: object     # i32[B,S]
     weights: object   # u32[B,S] 16.16 per-item weights
+
+    @property
+    def magic(self):
+        """u64[B,S] ``straw2_magic(weights)``: the kernel's division-free
+        reciprocal of each item weight (numpy u64 for numpy weights,
+        int64 bit patterns on the weights' device for a tensor).
+
+        ``weights`` is the one source: the magic is recomputed whenever
+        they are a new object or a tensor written in place (its
+        ``_version`` moved), so the kernel and the plain walk, which
+        divides by ``weights``, cannot disagree."""
+        w = self.weights
+        if not isinstance(w, torch.Tensor):
+            return straw2_magic(w)
+        cached = self.__dict__.get("_magic")
+        if cached is None or cached[0] is not w or cached[1] != w._version:
+            m = straw2_magic(w.detach().cpu().numpy())
+            cached = (w, w._version,
+                      torch.from_numpy(m.view(np.int64)).to(w.device))
+            self.__dict__["_magic"] = cached
+        return cached[2]
 
 
 def _pad2(rows, width, dtype):

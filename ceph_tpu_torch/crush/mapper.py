@@ -7,8 +7,9 @@ a bucket, descend the hierarchy with retrying straw2 draws (firstn or
 indep), emit devices.  The TPU version vmaps one x's program over the
 batch with ``lax.while_loop`` retry descents; PyTorch has no vmapped
 data-dependent loop, so on the card the walk is a hand-written CUDA
-kernel with one thread per x (``csrc/crush_rule.cu``, a port of
-``native/crush_host.cpp:do_rule_one``).
+kernel with a group of lanes per x (``csrc/crush_rule.cu``, a port of
+``native/crush_host.cpp:do_rule_one``) that divides by no weight: it
+multiplies by the map's ``magic`` reciprocals instead.
 
 ``map_batch_plain`` is the plain PyTorch version: the batch axis runs
 over xs, every retry loop is a Python loop over the lanes still open,
@@ -38,8 +39,9 @@ from .ln import ln16_table, ln_tables, straw2_draw
 from .map import CrushMap
 from .map_arrays import MapArrays, MapStatic, as_i32, encode_map, to_device
 
-MAX_RESULT = 32   # result_max cap: the kernel's per-thread arrays
+MAX_RESULT = 32   # result_max cap: the kernel's work vectors
 MAX_STEPS = 32    # rule steps the kernel's parameter block holds
+MAX_BUCKET = 1 << 15  # bucket width the kernel's straw2 key can index
 M32 = 0xFFFFFFFF
 UNDEF = C.CRUSH_ITEM_UNDEF
 NONE = C.CRUSH_ITEM_NONE
@@ -467,6 +469,7 @@ def crush_rule_batched(arrays: MapArrays, prog: RuleProgram,
     """Map every x through the rule: (i32[N, R], i32[N]).  Kernel K2 on
     CUDA tensors, ``map_batch_plain`` on CPU tensors.  Arrays, weight
     and xs are int32 tensors (u32 values as bit patterns) on one device.
+    The kernel reads ``arrays.magic``, which follows ``arrays.weights``.
 
     ``draws``: an optional i32[N] CUDA tensor that receives the number
     of straw2 item draws each x took (what a run's work is counted by).
@@ -476,6 +479,8 @@ def crush_rule_batched(arrays: MapArrays, prog: RuleProgram,
         return map_batch_plain(arrays, prog, weight, xs)
     if xs.device.type != "cuda":
         raise ValueError(f"unsupported device {xs.device}")
+    if arrays.items.shape[1] > MAX_BUCKET:
+        raise NotImplementedError(f"buckets wider than {MAX_BUCKET} items")
     N, R = xs.numel(), prog.result_max
     res = torch.empty((N, R), dtype=torch.int32, device=xs.device)
     lens = torch.empty(N, dtype=torch.int32, device=xs.device)
@@ -495,12 +500,13 @@ def crush_rule_batched(arrays: MapArrays, prog: RuleProgram,
     p.B, p.S = arrays.items.shape
     p.weight_len = weight.numel()
     tabs = _ln_tables_on(xs.device)
+    magic = arrays.magic
     launch = _lib()
     with torch.cuda.device(xs.device):
         stream = torch.cuda.current_stream(xs.device).cuda_stream
         rc = launch(ctypes.byref(p), arrays.alg.data_ptr(),
                     arrays.btype.data_ptr(), arrays.size.data_ptr(),
-                    arrays.items.data_ptr(), arrays.weights.data_ptr(),
+                    arrays.items.data_ptr(), magic.data_ptr(),
                     weight.data_ptr(), xs.data_ptr(), N, tabs.data_ptr(),
                     res.data_ptr(), lens.data_ptr(),
                     draws.data_ptr() if draws is not None else None,

@@ -1,4 +1,4 @@
-// crush_rule — the batched CRUSH rule walk, one thread per input x.
+// crush_rule — the batched CRUSH rule walk, a group of G lanes per input x.
 //
 // Replaces: ceph_tpu/crush/mapper_jax.py:make_single_fn (vmapped and
 // jitted by build_rule_fn), the XLA program that runs crush_do_rule for
@@ -6,33 +6,46 @@
 // of native/crush_host.cpp:do_rule_one (hash3, crush_ln, straw2_draw,
 // bucket_straw2_choose, choose_firstn, choose_indep, the rule VM) with
 // the same C semantics: choose_tries = total_tries + 1, a strict `>` so
-// the first maximum wins, and int64 division truncating toward zero.
+// the first maximum wins, a zero-weight item draws S64_MIN, and the
+// straw2 quotient is int64 division truncating toward zero.
 //
 // Scope: straw2 buckets with the rjenkins hash, no choose_args, and
 // choose_local_tries == choose_local_fallback_tries == 0.  The Python
 // wrapper (ceph_tpu_torch/crush/mapper.py) refuses any other map or rule
-// before launching, and result_max above kRMax.
+// before launching, result_max above kRMax and buckets wider than
+// kMaxBucket.
 //
-// What bounds it on an H100: integer operations.  Each straw2 item draw
-// is a 3-input rjenkins hash (~180 32-bit ops), the crush_ln table
-// pipeline and a 64-bit signed division, which the GPU has no
-// instruction for (it is a software routine of tens of instructions).
-// The map (~100 KB at 10,000 devices) and the weights stay in L2; the
-// bytes moved per x are a few dozen.
+// What bounds it on an H100: 32-bit integer issue.  Each straw2 item
+// draw is a 3-input rjenkins hash (~180 ops in 5 serial mix rounds) and
+// the crush_ln table pipeline (~15); the map (~100 KB at 10,000
+// devices) stays in L1/L2 and an x moves a few dozen bytes.
 //
 // What the design does about it:
-//  - One thread walks one x to the end, so the data-dependent retry
-//    loops cost only the draws this x needs; no lane waits on a masked
-//    loop of the batch as in the vmapped program.
+//  - No division on the draw path.  MapArrays.magic derives, per item
+//    weight w, a magic m | l << 58 (ln.py:straw2_magic) with
+//    floor(n / w) == mulhi64(n << 15, m) >> l for every n < 2^49; the
+//    numerator n = 2^48 - crush_ln(u) is at most 2^48.  The C draw is
+//    -floor(n / w), so the largest draw is the smallest quotient.
+//  - Lanes over a bucket's items.  G lanes walk one x: in a straw2
+//    choose, lane l draws items l, l+G, ... (contiguous loads across the
+//    group) and keeps the smallest key (quotient << 15 | item index;
+//    a zero weight carries a quotient above any real one), then a
+//    __shfl_xor_sync butterfly takes the group's minimum.  Keys are
+//    unique, and the lower index wins a tied quotient: C's first
+//    maximum.  Everything else (the rule VM, the retry loops, is_out)
+//    runs uniformly in all G lanes, so 65,536 xs make 65,536 x G
+//    threads and fill the card.
+//  - The rule VM's work vectors (w, o, c and the result, result_max
+//    entries each) live in per-group shared memory sized by result_max
+//    at launch, not in per-thread local arrays.  Every lane of a group
+//    stores the same values there and reads what any lane stored, so
+//    each shared store follows a __syncwarp of the group: once a lane
+//    passes it, every lane has made its reads of the old value and its
+//    earlier stores.  All lanes of a group take the same path through
+//    the walk, so each of them reaches every __syncwarp.
 //  - The two small crush_ln tables (4 KB) sit in shared memory, loaded
-//    once per block; bucket rows are read through L1/L2.
-//  - The rule's steps and tunables travel by value in the kernel's
-//    parameter block (constant bank, read uniformly by every thread).
-//  - The work arrays are fixed per thread (kRMax entries) instead of
-//    do_rule_one's std::vectors.
-// Divergence between threads that retry and threads that do not is the
-// price of this simple design; the reciprocal straw2 key (a multiply-high
-// in place of the division) is later work.
+//    once per block; the rule's steps and tunables travel by value in
+//    the kernel's parameter block (constant bank, read uniformly).
 
 #include <cstddef>
 #include <cstdint>
@@ -40,6 +53,7 @@
 
 namespace {
 
+constexpr int kGroup = 4;       // lanes per x
 constexpr int kRMax = 32;       // result_max cap (MAX_RESULT in mapper.py)
 constexpr int kMaxSteps = 32;   // rule steps (MAX_STEPS in mapper.py)
 constexpr int kRhLhLen = 258;
@@ -47,6 +61,15 @@ constexpr int kLlLen = 256;
 constexpr uint32_t kHashSeed = 0x4E67C6A7u;  // 1315423911
 constexpr int32_t kItemUndef = 0x7FFFFFFE;
 constexpr int32_t kItemNone = 0x7FFFFFFF;
+
+// The straw2 key (ln.py: MAGIC_*): quotient << kIdxBits | item index.
+constexpr int kIdxBits = 15;
+constexpr int kMaxBucket = 1 << kIdxBits;  // MAX_BUCKET in mapper.py
+constexpr int kMagicShiftAt = 58;
+constexpr uint64_t kMagicMask = (1ull << kMagicShiftAt) - 1;
+constexpr int kPreshift = 15;                   // 64 - 49 numerator bits
+constexpr uint64_t kZeroWeightQ = (1ull << 49) - 1;  // > any quotient
+constexpr uint64_t kNoKey = ~0ull;
 
 constexpr int kOpTake = 1;
 constexpr int kOpChooseFirstn = 2;
@@ -102,22 +125,6 @@ __device__ __forceinline__ uint32_t hash3(uint32_t a, uint32_t b,
   return h;
 }
 
-// Not on this slice's path (list buckets use it); kept with its peers.
-[[maybe_unused]] __device__ __forceinline__ uint32_t hash4(uint32_t a,
-                                                           uint32_t b,
-                                                           uint32_t c,
-                                                           uint32_t d) {
-  uint32_t h = kHashSeed ^ a ^ b ^ c ^ d;
-  uint32_t x = 231232, y = 1232;
-  mix(a, b, h);
-  mix(c, d, h);
-  mix(a, x, h);
-  mix(y, b, h);
-  mix(c, x, h);
-  mix(y, d, h);
-  return h;
-}
-
 // ---- 2^44 * log2(x + 1) in fixed point (src/crush/mapper.c:226-268) --------
 
 __device__ __forceinline__ uint64_t crush_ln(uint32_t xin,
@@ -139,20 +146,37 @@ __device__ __forceinline__ uint64_t crush_ln(uint32_t xin,
   return (static_cast<uint64_t>(iexpon) << (12 + 32)) + lh;
 }
 
-// ---- one x's walk ------------------------------------------------------------
+// ---- one x's walk, by a group of G lanes ------------------------------------
 
+template <int G>
+__device__ __forceinline__ uint64_t group_min(uint64_t v, unsigned mask) {
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1) {
+    const uint64_t o = __shfl_xor_sync(
+        mask, static_cast<unsigned long long>(v), off, G);
+    v = o < v ? o : v;
+  }
+  return v;
+}
+
+template <int G>
 struct Walk {
   const int32_t* alg;
   const int32_t* btype;
   const int32_t* size;
   const int32_t* items;   // [B, S]
-  const uint32_t* iw;     // [B, S] item weights
+  const uint64_t* magic;  // [B, S] straw2 reciprocals (ln.py:straw2_magic)
   const uint32_t* weight; // [weight_len] device weights
   const uint64_t* rh_lh;
   const uint64_t* ll;
   int B, S, max_devices, weight_len;
   uint32_t x;
-  int draws;  // straw2 items drawn so far
+  int lane;       // this thread's lane in the group, [0, G)
+  unsigned mask;  // the group's lanes in the warp
+  int draws;      // straw2 items drawn so far, counted once per x
+
+  // Before every store to the group's shared work vectors.
+  __device__ void sync() const { __syncwarp(mask); }
 
   __device__ bool valid_bucket(int32_t id) const {
     return id < 0 && -1 - id < B && alg[-1 - id] != 0;
@@ -163,29 +187,29 @@ struct Walk {
     return valid_bucket(item) ? btype[-1 - item] : -1;
   }
 
-  // bucket_straw2_choose (mapper.c:339-362)
+  // bucket_straw2_choose (mapper.c:339-362): the item with the smallest
+  // quotient (the largest draw), the lowest index among ties.
   __device__ int32_t straw2_choose(int bi, uint32_t r) {
     const int sz = size[bi];
     const int32_t* ids = items + static_cast<size_t>(bi) * S;
-    const uint32_t* ws = iw + static_cast<size_t>(bi) * S;
-    int high = 0;
-    int64_t high_draw = 0;
-    for (int i = 0; i < sz; i++) {
-      const uint32_t w = ws[i];
-      int64_t draw = INT64_MIN;
-      if (w != 0) {
-        const uint32_t u = hash3(x, static_cast<uint32_t>(ids[i]), r) & 0xFFFF;
-        const int64_t ln =
-            static_cast<int64_t>(crush_ln(u, rh_lh, ll)) - 0x1000000000000LL;
-        draw = ln / static_cast<int64_t>(w);
+    const uint64_t* mg = magic + static_cast<size_t>(bi) * S;
+    uint64_t best = kNoKey;
+    for (int i = lane; i < sz; i += G) {
+      const uint64_t m = mg[i];
+      uint64_t q = kZeroWeightQ;
+      if (m != 0) {
+        const uint32_t u =
+            hash3(x, static_cast<uint32_t>(ids[i]), r) & 0xFFFF;
+        const uint64_t n = (1ull << 48) - crush_ln(u, rh_lh, ll);
+        q = __umul64hi(n << kPreshift, m & kMagicMask) >>
+            static_cast<int>(m >> kMagicShiftAt);
       }
-      if (i == 0 || draw > high_draw) {
-        high = i;
-        high_draw = draw;
-      }
+      const uint64_t key = q << kIdxBits | static_cast<uint64_t>(i);
+      best = key < best ? key : best;
     }
+    best = group_min<G>(best, mask);
     draws += sz;
-    return ids[high];
+    return ids[best & (kMaxBucket - 1)];
   }
 
   // is_out (mapper.c:402-416)
@@ -245,6 +269,7 @@ struct Walk {
                     count, recurse_tries, 0, vary_r, stable, nullptr, sub_r);
                 if (got <= outpos) reject = true;
               } else {
+                sync();
                 out2[outpos] = item;
               }
             }
@@ -261,6 +286,7 @@ struct Walk {
         break;
       }
       if (!skip_rep) {
+        sync();
         out[outpos] = item;
         outpos++;
         count--;
@@ -276,6 +302,7 @@ struct Walk {
                                int recurse_tries, int32_t* out2,
                                int parent_r) {
     const int endpos = outpos + left;
+    sync();
     for (int rep = outpos; rep < endpos; rep++) {
       out[rep] = kItemUndef;
       if (kLeaf) out2[rep] = kItemUndef;
@@ -289,6 +316,7 @@ struct Walk {
           if (size[in_bi] == 0) break;
           const int32_t item = straw2_choose(in_bi, r);
           if (item >= max_devices) {
+            sync();
             out[rep] = kItemNone;
             if (kLeaf) out2[rep] = kItemNone;
             left--;
@@ -297,6 +325,7 @@ struct Walk {
           const int itemtype = item_type(item);
           if (itemtype != type) {
             if (item >= 0 || !valid_bucket(item)) {
+              sync();
               out[rep] = kItemNone;
               if (kLeaf) out2[rep] = kItemNone;
               left--;
@@ -320,10 +349,12 @@ struct Walk {
                                   static_cast<int>(r));
               if (out2[rep] == kItemNone) break;
             } else {
+              sync();
               out2[rep] = item;
             }
           }
           if (itemtype == 0 && is_out(item)) break;
+          sync();
           out[rep] = item;
           left--;
           break;
@@ -331,18 +362,22 @@ struct Walk {
       }
     }
     for (int rep = outpos; rep < endpos; rep++) {
-      if (out[rep] == kItemUndef) out[rep] = kItemNone;
-      if (kLeaf && out2[rep] == kItemUndef) out2[rep] = kItemNone;
+      const int32_t v = out[rep];
+      const int32_t v2 = kLeaf ? out2[rep] : 0;
+      sync();
+      out[rep] = v == kItemUndef ? kItemNone : v;
+      if (kLeaf) out2[rep] = v2 == kItemUndef ? kItemNone : v2;
     }
   }
 
-  // crush_do_rule (mapper.c:878-1080); returns the result length.
-  __device__ int do_rule(const RuleParams& p, int32_t* result) {
-    int32_t wbuf[kRMax], obuf[kRMax], cbuf[kRMax];
-    int32_t* w = wbuf;
-    int32_t* o = obuf;
-    int32_t* c = cbuf;
+  // crush_do_rule (mapper.c:878-1080) into work[3R, 4R); returns the
+  // result length.  work: the group's 4 * result_max entries.
+  __device__ int do_rule(const RuleParams& p, int32_t* work) {
     const int R = p.result_max;
+    int32_t* w = work;
+    int32_t* o = work + R;
+    int32_t* c = work + 2 * R;
+    int32_t* result = work + 3 * R;
     int wsize = 0, result_len = 0;
     int choose_tries = p.total_tries + 1;  // mapper.c:906 off-by-one heritage
     int choose_leaf_tries = 0;
@@ -353,6 +388,7 @@ struct Walk {
       switch (op) {
         case kOpTake:
           if ((arg1 >= 0 && arg1 < max_devices) || valid_bucket(arg1)) {
+            sync();
             w[0] = arg1;
             wsize = 1;
           }
@@ -414,6 +450,7 @@ struct Walk {
             }
           }
           if (leaf) {
+            sync();
             for (int i = 0; i < osize; i++) o[i] = c[i];
           }
           int32_t* tmp = w;
@@ -423,6 +460,7 @@ struct Walk {
           break;
         }
         case kOpEmit:
+          sync();
           for (int i = 0; i < wsize && result_len < R; i++) {
             result[result_len++] = w[i];
           }
@@ -438,33 +476,54 @@ struct Walk {
 
 // ---- kernel and launch -----------------------------------------------------
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 256;
+static_assert(kGroup >= 1 && kGroup <= 32 && (kGroup & (kGroup - 1)) == 0,
+              "kGroup must be a power of two in [1, 32]");
+constexpr int kGroupsPerBlock = kThreads / kGroup;
+static_assert(kGroupsPerBlock * 4 * kRMax * sizeof(int32_t) +
+                      sizeof(uint64_t) * (kRhLhLen + kLlLen) <=
+                  48 * 1024,
+              "the work vectors at kRMax must fit the default shared memory");
 
+template <int G>
 __global__ void __launch_bounds__(kThreads)
 crush_rule_kernel(const RuleParams p, const int32_t* __restrict__ alg,
                   const int32_t* __restrict__ btype,
                   const int32_t* __restrict__ size,
                   const int32_t* __restrict__ items,
-                  const uint32_t* __restrict__ iw,
+                  const uint64_t* __restrict__ magic,
                   const uint32_t* __restrict__ weight,
                   const uint32_t* __restrict__ xs, int nx,
                   const uint64_t* __restrict__ ln_tabs,
                   int32_t* __restrict__ results, int32_t* __restrict__ lens,
                   int32_t* __restrict__ draws) {
   __shared__ uint64_t s_tabs[kRhLhLen + kLlLen];
+  extern __shared__ int32_t s_work[];  // [groups per block][4 * result_max]
   for (int t = threadIdx.x; t < kRhLhLen + kLlLen; t += blockDim.x) {
     s_tabs[t] = ln_tabs[t];
   }
   __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= nx) return;
-  Walk wk{alg, btype, size, items, iw, weight, s_tabs, s_tabs + kRhLhLen,
-          p.B, p.S, p.max_devices, p.weight_len, xs[i], 0};
-  int32_t* row = results + static_cast<size_t>(i) * p.result_max;
-  const int len = wk.do_rule(p, row);
-  for (int j = len; j < p.result_max; j++) row[j] = kItemNone;
-  lens[i] = len;
-  if (draws != nullptr) draws[i] = wk.draws;
+  const int g = threadIdx.x / G;
+  const int lane = threadIdx.x % G;
+  const int i = blockIdx.x * (kThreads / G) + g;
+  if (i >= nx) return;  // the whole group leaves together
+  const int R = p.result_max;
+  const unsigned mask =
+      G == 32 ? 0xFFFFFFFFu
+              : ((1u << G) - 1) << ((threadIdx.x & 31) & ~(G - 1));
+  Walk<G> wk{alg, btype, size, items, magic, weight, s_tabs,
+             s_tabs + kRhLhLen, p.B, p.S, p.max_devices, p.weight_len,
+             xs[i], lane, mask, 0};
+  int32_t* work = s_work + g * 4 * R;
+  const int len = wk.do_rule(p, work);
+  int32_t* row = results + static_cast<size_t>(i) * R;
+  for (int j = lane; j < R; j += G) {
+    row[j] = j < len ? work[3 * R + j] : kItemNone;
+  }
+  if (lane == 0) {
+    lens[i] = len;
+    if (draws != nullptr) draws[i] = wk.draws;
+  }
 }
 
 }  // namespace
@@ -472,26 +531,36 @@ crush_rule_kernel(const RuleParams p, const int32_t* __restrict__ alg,
 extern "C" {
 
 // Map xs[0..nx) through the rule in *params over the SoA map (int32
-// rows; u32 fields as bit patterns).  results i32[nx, result_max] padded
-// with CRUSH_ITEM_NONE, lens i32[nx]; draws (nullable) i32[nx] receives
-// each x's straw2 draw count.  ln_tabs: RH/LH (258) then LL (256) as
-// u64.  Returns the launch's cudaError_t; 0 is success.
+// rows; u32 fields as bit patterns; magic u64[B, S] from
+// ln.py:straw2_magic).  results i32[nx, result_max] padded with
+// CRUSH_ITEM_NONE, lens i32[nx]; draws (nullable) i32[nx] receives each
+// x's straw2 draw count.  ln_tabs: RH/LH (258) then LL (256) as u64.
+// Returns the launch's cudaError_t; 0 is success.
 int crush_rule_batched_launch(const void* params, const void* alg,
                               const void* btype, const void* size,
-                              const void* items, const void* item_weights,
+                              const void* items, const void* magic,
                               const void* weight, const void* xs, int nx,
                               const void* ln_tabs, void* results, void* lens,
                               void* draws, void* stream) {
   const RuleParams& p = *static_cast<const RuleParams*>(params);
-  const int blocks = (nx + kThreads - 1) / kThreads;
-  crush_rule_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      p, static_cast<const int32_t*>(alg), static_cast<const int32_t*>(btype),
-      static_cast<const int32_t*>(size), static_cast<const int32_t*>(items),
-      static_cast<const uint32_t*>(item_weights),
-      static_cast<const uint32_t*>(weight), static_cast<const uint32_t*>(xs),
-      nx, static_cast<const uint64_t*>(ln_tabs),
-      static_cast<int32_t*>(results), static_cast<int32_t*>(lens),
-      static_cast<int32_t*>(draws));
+  if (p.result_max < 1 || p.result_max > kRMax) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int blocks = (nx + kGroupsPerBlock - 1) / kGroupsPerBlock;
+  const size_t smem =
+      static_cast<size_t>(kGroupsPerBlock) * 4 * p.result_max * sizeof(int32_t);
+  crush_rule_kernel<kGroup>
+      <<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          p, static_cast<const int32_t*>(alg),
+          static_cast<const int32_t*>(btype),
+          static_cast<const int32_t*>(size),
+          static_cast<const int32_t*>(items),
+          static_cast<const uint64_t*>(magic),
+          static_cast<const uint32_t*>(weight),
+          static_cast<const uint32_t*>(xs), nx,
+          static_cast<const uint64_t*>(ln_tabs),
+          static_cast<int32_t*>(results), static_cast<int32_t*>(lens),
+          static_cast<int32_t*>(draws));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -17,8 +17,9 @@ Phases (any failure raises and the script exits non-zero):
    of 4 x 8 x 1 MiB, decode of 8 x 4 MiB).
 3. K2 ``crush_rule_batched`` against its plain version on ``map_big10k``
    (rules 0 and 1) for 4,096 random xs and for the main path's 65,536
-   PGs, then against every golden case of the four in-scope maps in
-   ``tests/golden``.
+   PGs, on a copy of the map whose straw2 draws tie (``tie_map``) for
+   the same 65,536 PGs, then against every golden case of the four
+   in-scope maps in ``tests/golden``.
 4. The main path at full width, with every launch counter set to 0
    first: the flagship step (CRUSH ``map_big10k`` rule 0, numrep 3, over
    65,536 PGs, plus RS(8,3) ``encode_batched`` of 4 stripes x 8 x 1 MiB)
@@ -38,6 +39,7 @@ the rest of the repository beside it, it exits non-zero and prints no
 result.
 """
 
+import copy
 import json
 import os
 import subprocess
@@ -56,9 +58,11 @@ INT8_TENSOR_OPS_PER_S = 1979e12
 # an FMA as 2: one integer op per lane per clock is 67e12 / 4.
 INT32_OPS_PER_S = 67e12 / 4
 # Integer ops of one straw2 item draw in csrc/crush_rule.cu: hash3 is 3
-# xors plus 5 mix rounds of 36 ops (183), crush_ln about 15, the 64-bit
-# division counted as 1, mask/compare/select 3.
+# xors plus 5 mix rounds of 36 ops (183), crush_ln about 15, the
+# quotient counted as 1 (a multiply-high by the item's magic; kept at 1
+# from when it was a division, so bounds compare), mask/compare/select 3.
 OPS_PER_DRAW = 202
+K2_LANES_PER_PG = 4  # kGroup in csrc/crush_rule.cu
 
 GOLDEN_MAPS = ("map_big10k", "map_flat12", "map_tree3", "map_weird")
 PGS = 65536
@@ -112,6 +116,25 @@ def load_map(name):
     with open(os.path.join(GOLDEN, f"{name}.json")) as f:
         d = json.load(f)
     return CrushMap.from_dict(d["map"]), d["cases"]
+
+
+def tie_map(cmap):
+    """A copy of ``map_big10k`` whose straw2 draws tie across a lane
+    group: the hosts of one rack and the OSDs of one host weigh 0 (every
+    draw is S64_MIN, so the first item must win), one host has a single
+    OSD of weight 0xFFFFFFFF among 1.0s (it wins from whichever lane
+    holds it), and one host's OSDs all weigh 0xFFFFFFFF (quotients of at
+    most 2^16, so equal ones meet and the lower index must win)."""
+    t = copy.deepcopy(cmap)
+    racks = sorted(i for i, b in t.buckets.items() if b.type == 2)
+    hosts = sorted(i for i, b in t.buckets.items() if b.type == 1)
+    rack = t.buckets[racks[0]]
+    rack.item_weights = [0] * rack.size
+    zero, single, heavy = (t.buckets[hosts[k]] for k in (30, 60, 90))
+    zero.item_weights = [0] * zero.size
+    single.item_weights[single.size - 3] = 0xFFFFFFFF
+    heavy.item_weights = [0xFFFFFFFF] * heavy.size
+    return t
 
 
 def golden_check(case, res, lens, label, n=256):
@@ -247,6 +270,18 @@ def phase_k2(dev):
             log(f"k2 check map_big10k rule {ruleno} numrep {numrep} "
                 f"{label}: equal")
 
+    tmapper = BatchedMapper(tie_map(cmap), device=dev)
+    for ruleno, numrep in ((0, 3), (1, 11)):
+        prog = tmapper.program(ruleno, numrep)
+        got = crush_rule_batched(tmapper.arrays, prog, weight, pgs)
+        want = map_batch_plain(tmapper.arrays, prog, weight, pgs)
+        e = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
+        if e:
+            raise AssertionError(f"K2 differs from plain on the tie map, "
+                                 f"rule {ruleno}: {e}")
+        log(f"k2 check tie map rule {ruleno} numrep {numrep} main-path "
+            f"PGs [0, {PGS}): equal")
+
     for name in GOLDEN_MAPS:
         gmap, gcases = load_map(name)
         gm = BatchedMapper(gmap, device=dev)
@@ -276,8 +311,8 @@ def phase_k2(dev):
                                                  weight, batches[0]), 1)
     a = mapper.arrays
     nbytes = (PGS * 4 + PGS * 4 * 4 + weight.numel() * 4
-              + sum(t.numel() * 4 for t in (a.alg, a.btype, a.size,
-                                             a.items, a.weights))
+              + sum(t.numel() * t.element_size()
+                    for t in (a.alg, a.btype, a.size, a.items, a.magic))
               + 514 * 8)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = draws_per_launch * OPS_PER_DRAW / INT32_OPS_PER_S * 1e3
@@ -289,7 +324,8 @@ def phase_k2(dev):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None,
             "shape": f"map_big10k rule 0 numrep 3, {PGS} PGs, "
-                     f"{draws_per_launch / PGS:.1f} draws per PG"}
+                     f"{draws_per_launch / PGS:.1f} draws per PG, "
+                     f"{K2_LANES_PER_PG} lanes per PG"}
 
 
 # -- phase 4 ----------------------------------------------------------
