@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` source has a plain C interface.  It is compiled by
 ``nvcc`` for ``sm_90a`` into a shared library of its own, at first use,
 into ``_build/`` beside this file (git ignores it), and loaded with
-``ctypes``.  The library's name carries a digest of its source and
-flags, so an edited source is never served by a stale build.  A build
+``ctypes``.  The library's name carries a digest of its source, the
+headers beside it (``csrc/*.cuh``) and the flags, so an edited source
+is never served by a stale build.  A build
 or load that fails raises: nothing falls back to the CPU.
 """
 
@@ -48,6 +49,8 @@ def _nvcc() -> str:
 def lib_path(name: str) -> pathlib.Path:
     src = SOURCES[name]
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):   # what a source includes
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .gf2_kernels import gf2_matmul_w8
+from .gf2_kernels import gf2_fragments, gf2_matmul_w8
 from .gfw import gf2_mat_inv
 
 DECODE_CACHE_SIZE = 512  # erasure signatures kept per code
@@ -61,7 +61,16 @@ class BitCode:
         self.full_bm = np.concatenate(
             [np.eye(w * k, dtype=np.uint8), coding_bm], axis=0)
         self._enc_dev = torch.from_numpy(coding_bm.copy()).to(self.device)
+        self._enc_frag = self._fragments(self._enc_dev)  # K1's form of it
         self._dec_cache: Dict[Tuple[int, ...], tuple] = {}
+
+    def _fragments(self, bm: torch.Tensor):
+        """K1's fragments of ``bm``, kept for launches on any stream:
+        built on the current one, which is waited for once here."""
+        frag = gf2_fragments(bm)
+        if frag is not None:
+            torch.cuda.current_stream(self.device).synchronize()
+        return frag
 
     def _tensor(self, data) -> torch.Tensor:
         t = torch.as_tensor(data, dtype=torch.uint8, device=self.device)
@@ -74,7 +83,7 @@ class BitCode:
         if data.dim() != 2 or data.shape[0] != self.k:
             raise ValueError(f"expected [k={self.k}, L], got "
                              f"{tuple(data.shape)}")
-        return gf2_matmul_w8(self._enc_dev, data)
+        return gf2_matmul_w8(self._enc_dev, data, self._enc_frag)
 
     def encode_batched(self, stripes) -> torch.Tensor:
         """u8[B, k, L] -> parity u8[B, m, L] in one kernel launch.  The
@@ -84,7 +93,7 @@ class BitCode:
         if stripes.dim() != 3 or stripes.shape[1] != self.k:
             raise ValueError(f"expected [B, k={self.k}, L], got "
                              f"{tuple(stripes.shape)}")
-        return gf2_matmul_w8(self._enc_dev, stripes)
+        return gf2_matmul_w8(self._enc_dev, stripes, self._enc_frag)
 
     def all_chunks(self, data) -> torch.Tensor:
         """u8[k, L] -> u8[k+m, L]: systematic data + parity."""
@@ -94,14 +103,15 @@ class BitCode:
     # -- decode -------------------------------------------------------
     def _decode_mats(self, present: Tuple[int, ...]):
         """The GF(2) decode matrix for k survivors, inverted on the host
-        and cached by erasure signature."""
+        and cached by erasure signature with K1's fragments of it:
+        (inverse, fragments or None)."""
         mats = self._dec_cache.get(present)
         if mats is None:
             w = self.layout.w
             rows = np.concatenate(
                 [self.full_bm[c * w:(c + 1) * w] for c in present], axis=0)
-            inv = gf2_mat_inv(rows)
-            mats = (torch.from_numpy(inv).to(self.device),)
+            inv = torch.from_numpy(gf2_mat_inv(rows)).to(self.device)
+            mats = (inv, self._fragments(inv))
             if len(self._dec_cache) >= DECODE_CACHE_SIZE:
                 self._dec_cache.pop(next(iter(self._dec_cache)))
             self._dec_cache[present] = mats
@@ -114,9 +124,11 @@ class BitCode:
         if len(avail) < self.k:
             raise ValueError("need at least k chunks")
         present = tuple(avail[:self.k])
-        (inv,) = self._decode_mats(present)
-        stack = torch.stack([self._tensor(chunks[i]) for i in present])
-        return gf2_matmul_w8(inv, stack)
+        inv, frag = self._decode_mats(present)
+        # the kernel reads the survivors where they lie (a table of row
+        # pointers); nothing is stacked on the card
+        return gf2_matmul_w8(inv, [self._tensor(chunks[i]) for i in present],
+                             frag)
 
     def decode(self, want: Sequence[int],
                chunks: Dict[int, object]) -> Dict[int, torch.Tensor]:

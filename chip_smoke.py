@@ -10,11 +10,17 @@ Phases (any failure raises and the script exits non-zero):
 
 1. Build the CUDA kernels from ``ceph_tpu_torch/csrc`` (one nvcc each,
    started together).
+   It prints ptxas' register report and K1's SASS instruction mix.
 2. K1 ``gf2_matmul_w8`` against its plain PyTorch version on the card,
    byte for byte: (k, m, L) in {(4,2,512), (8,3,2048), (8,3,777),
    (8,3,4 MiB)}, a batch of odd-length stripes, the 64x64 decode
-   inverse for erasures [0, 1], and the main path's two shapes (encode
-   of 4 x 8 x 1 MiB, decode of 8 x 4 MiB).
+   inverse for erasures [0, 1], random 0/1 bit matrices at (k, m) in
+   {(8,3), (8,8), (8,16), (32,32), (5,7)} (L = 777, 4096, 65,552 and a
+   batch),
+   all 55 2-erasure inverses of RS(8,3) at L = 777 with the survivors
+   as separate tensors, survivors at odd offsets of one buffer, and
+   the main path's two shapes (encode of 4 x 8 x 1 MiB, decode of
+   8 x 4 MiB).
 3. K2 ``crush_rule_batched`` against its plain version on ``map_big10k``
    (rules 0 and 1) for 4,096 random xs and for the main path's 65,536
    PGs, on a copy of the map whose straw2 draws tie (``tie_map``) for
@@ -24,14 +30,20 @@ Phases (any failure raises and the script exits non-zero):
    first: the flagship step (CRUSH ``map_big10k`` rule 0, numrep 3, over
    65,536 PGs, plus RS(8,3) ``encode_batched`` of 4 stripes x 8 x 1 MiB)
    for 8 iterations, rule 1 (numrep 11) over the same PGs, and RS
-   ``decode`` of erasures [0, 1].  The decode must give the data back,
-   and the first 256 PGs of both rules must match the golden vectors
-   (as ``bench.py:_golden_check`` does).
+   ``decode`` of erasures [0, 1], each timed on the host clock and
+   encode and decode also by CUDA events per call.  The decode must
+   give the data back and allocate no more than its k x L output (the
+   survivors are read in place), and the first 256 PGs of both rules
+   must match the golden vectors (as ``bench.py:_golden_check`` does).
 
 Tolerance is zero everywhere: every output is an integer.  Kernel times
-come from CUDA events, plain versions' times too; each bound is the
-larger of bytes moved over the card's memory rate and operations over
-its peak rate for their type (published H100 SXM figures).  It prints
+(``ms``) come from CUDA events around eager calls; K1's are also timed
+around replays of a CUDA graph of its launches (``graph_ms``: device
+time without the host's gaps).  Each
+bound is the larger of bytes moved over the card's memory rate and
+operations over its peak rate for their type (published H100 SXM
+figures; K1's 1-bit products are counted at the int8 rate, which is
+lower).  It prints
 the card's name and power limit, one line per kernel, one ``kernels``
 JSON line, the flagship rates, and last the contract line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -40,6 +52,7 @@ result.
 """
 
 import copy
+import itertools
 import json
 import os
 import subprocess
@@ -100,6 +113,101 @@ def cuda_ms(fn, iters, warmup=1):
     return start.elapsed_time(stop) / iters
 
 
+def sass_mix(lib, pattern):
+    """SASS opcode counts of each kernel in ``lib`` whose name matches
+    ``pattern``, by ``cuobjdump -sass``: {name: (whole kernel, the span
+    from its first to its last BMMA)}; {} without cuobjdump."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {}
+    run = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=120)
+    if run.returncode:
+        log(f"sass: cuobjdump exited {run.returncode}: "
+            f"{run.stderr.strip()[:200]}")
+        return {}
+    text = run.stdout
+    ops, name = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            name = name if re.search(pattern, name) else None
+            if name:
+                ops[name] = []
+            continue
+        op = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9_]*)", line)
+        if name and op:
+            ops[name].append(op.group(1))
+
+    def count(seq):
+        out = {}
+        for o in seq:
+            out[o] = out.get(o, 0) + 1
+        return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+    mix = {}
+    for name, seq in ops.items():
+        mma = [i for i, o in enumerate(seq) if o == "BMMA"]
+        span = seq[mma[0]:mma[-1] + 1] if mma else []
+        mix[name] = (count(seq), count(span))
+    return mix
+
+
+def log_k1_sass():
+    """K1's instruction mix.  A kernel compiled for its m (k <= 8,
+    m <= 8) unrolls the loop over output rows, so the span from its first
+    to its last BMMA is one warp's 128-column chunk for all m rows: an
+    opcode's count there x 32 lanes / 128 columns / m is its lane-ops
+    per byte column and output row.  The m=any kernel (KS=4, every
+    other shape) runs its span once per pass of 4 output rows."""
+    import re
+
+    from ceph_tpu_torch import build
+
+    mix = sass_mix(build.lib_path("gf2_matmul_w8"), "gf2_matmul_w8_kernel")
+    if not mix:
+        log("sass: no instruction mix")
+    for name, (whole, span) in sorted(mix.items()):
+        t = re.search(r"ILi(\d+)ELi(\d+)ELb(\d)E", name)
+        m = t.group(2) if t and t.group(2) != "0" else "any"
+        label = (f"KS={t.group(1)} m={m} aligned={t.group(3)}") if t else name
+        log(f"sass gf2_matmul_w8_kernel {label}: {sum(whole.values())} "
+            f"instructions, {sum(span.values())} from first to last BMMA "
+            + json.dumps(span))
+
+
+def cuda_graph_ms(fn, iters, replays=5):
+    """Mean device milliseconds of ``fn(i)``: ``iters`` calls captured in
+    one CUDA graph, replayed ``replays`` times between two CUDA events,
+    so the host's time between launches does not count."""
+    import torch
+
+    fn(0)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        with torch.cuda.graph(graph, stream=side):
+            for i in range(iters):
+                fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / (replays * iters)
+
+
 def max_abs_err(a, b):
     import torch
 
@@ -155,21 +263,24 @@ def phase_k1(dev):
 
     from ceph_tpu_torch.ec import gf
     from ceph_tpu_torch.ec.engine import BitCode
-    from ceph_tpu_torch.ec.gf2_kernels import (gf2_matmul_w8,
+    from ceph_tpu_torch.ec.gf2_kernels import (gf2_fragments, gf2_matmul_w8,
                                                gf2_matmul_w8_plain)
 
     rng = np.random.default_rng(1)
     err = 0
 
-    def check(bm, data, label):
+    def check(bm, data, label, quiet=False):
         nonlocal err
         got = gf2_matmul_w8(bm, data)
+        if isinstance(data, (list, tuple)):
+            data = torch.stack(list(data))
         want = gf2_matmul_w8_plain(bm, data)
         e = max_abs_err(got, want)
         if e:
             raise AssertionError(f"K1 differs from plain on {label}: {e}")
         err = max(err, e)
-        log(f"k1 check {label}: equal")
+        if not quiet:
+            log(f"k1 check {label}: equal")
         return got
 
     for k, m, L in ((4, 2, 512), (8, 3, 2048), (8, 3, 777),
@@ -188,11 +299,56 @@ def phase_k1(dev):
     data = torch.from_numpy(
         rng.integers(0, 256, (8, 777), dtype=np.uint8)).to(dev)
     full = code.all_chunks(data)
-    (inv,) = code._decode_mats(tuple(range(2, 10)))
+    inv, inv_frag = code._decode_mats(tuple(range(2, 10)))
     got = check(inv, full[2:10].contiguous(), "decode inverse 64x64 "
                 "erasures [0, 1] L=777")
     if not torch.equal(got, data):
         raise AssertionError("K1 decode did not give the data back")
+
+    # any bit matrix, not only GF(2^8)-derived ones: random 0/1 matrices,
+    # unaligned (777), one tile (4096), many tiles with a ragged last one
+    # (65,552) and a batch
+    for k, m in ((8, 3), (8, 8), (8, 16), (32, 32), (5, 7)):
+        rbm = torch.from_numpy(
+            rng.integers(0, 2, (8 * m, 8 * k), dtype=np.uint8)).to(dev)
+        for shape in ((k, 777), (k, 4096), (k, 65552), (3, k, 4112)):
+            rdata = torch.from_numpy(
+                rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+            check(rbm, rdata, f"random bit matrix k={k} m={m} {list(shape)}",
+                  quiet=True)
+        log(f"k1 check random bit matrix k={k} m={m} at L = 777, 4096, "
+            f"65552 and [3, {k}, 4112]: equal")
+
+    # every 2-erasure signature of RS(8,3), survivors as separate tensors
+    n_sig = 0
+    for lost in itertools.combinations(range(11), 2):
+        present = [i for i in range(11) if i not in lost][:8]
+        inv_l, _ = code._decode_mats(tuple(present))
+        rows = [full[i].clone() for i in present]
+        got = check(inv_l, rows, f"erasures {list(lost)}", quiet=True)
+        if not torch.equal(got, data):
+            raise AssertionError(f"K1 decode of erasures {list(lost)} did "
+                                 f"not give the data back")
+        n_sig += 1
+    log(f"k1 check all {n_sig} 2-erasure inverses of RS(8,3) at L=777, "
+        f"survivors as separate tensors: equal, data back")
+
+    # survivors at unaligned offsets of one buffer, small and large
+    for L in (777, 1 << 20):
+        dat = torch.from_numpy(
+            rng.integers(0, 256, (8, L), dtype=np.uint8)).to(dev)
+        ful = code.all_chunks(dat)
+        buf = torch.zeros(8 * (L + 5) + 3, dtype=torch.uint8, device=dev)
+        rows = []
+        for n, i in enumerate(range(2, 10)):
+            off = 3 + n * (L + 5)
+            buf[off:off + L] = ful[i]
+            rows.append(buf[off:off + L])
+        got = check(inv, rows, f"decode, survivors at odd offsets of one "
+                    f"buffer, L={L}")
+        if not torch.equal(got, dat):
+            raise AssertionError("K1 decode from unaligned survivors did "
+                                 "not give the data back")
 
     # time at the main path's shape: 4 stripes x 8 x 1 MiB -> 4 x 3 x 1 MiB,
     # cycling 4 input sets (176 MiB) so no launch finds its data in L2
@@ -210,11 +366,28 @@ def phase_k1(dev):
     if not torch.equal(got, flat):
         raise AssertionError("K1 main-path decode did not give the data "
                              "back")
-    dec_ms = cuda_ms(lambda i: gf2_matmul_w8(inv, survivors), 10, warmup=1)
-    dec_bound_ms = (2 * survivors.numel() + inv.numel()) \
+    dec_ms = cuda_ms(lambda i: gf2_matmul_w8(inv, survivors, inv_frag), 10)
+    dec_graph_ms = cuda_graph_ms(
+        lambda i: gf2_matmul_w8(inv, survivors, inv_frag), 10)
+    dec_plain_ms = cuda_ms(lambda i: gf2_matmul_w8_plain(inv, survivors), 2)
+    dec_t_bytes = (2 * survivors.numel() + inv.numel()) \
         / HBM_BYTES_PER_S * 1e3
+    dec_t_ops = 2 * inv.numel() * survivors.shape[1] \
+        / INT8_TENSOR_OPS_PER_S * 1e3
+    dec_bound_ms = max(dec_t_bytes, dec_t_ops)
+    log(f"k1 decode [{EC_K}, {EC_B * EC_CHUNK}] through the 64x64 inverse: "
+        f"kernel_ms={dec_ms:.4f} graph_ms={dec_graph_ms:.4f} "
+        f"plain_ms={dec_plain_ms:.3f} "
+        f"bound_ms={dec_bound_ms:.4f} "
+        f"({'bytes' if dec_t_bytes >= dec_t_ops else 'operations'})")
     del flat, survivors, got
-    ms = cuda_ms(lambda i: gf2_matmul_w8(bm, bufs[i % 4]), 20, warmup=2)
+    bm_frag = gf2_fragments(bm)
+    ms = cuda_ms(lambda i: gf2_matmul_w8(bm, bufs[i % 4], bm_frag), 20,
+                 warmup=2)
+    graph_ms = cuda_graph_ms(
+        lambda i: gf2_matmul_w8(bm, bufs[i % 4], bm_frag), 20)
+    log(f"k1 encode [{EC_B}, {EC_K}, {EC_CHUNK}]: kernel_ms={ms:.4f} "
+        f"graph_ms={graph_ms:.4f}")
     plain_ms = cuda_ms(lambda i: gf2_matmul_w8_plain(bm, bufs[i % 4]), 3)
     nbytes = EC_B * (EC_K + EC_M) * EC_CHUNK + bm.numel()
     ops = 2 * (8 * EC_M) * (8 * EC_K) * EC_B * EC_CHUNK
@@ -225,15 +398,17 @@ def phase_k1(dev):
     return {"name": "gf2_matmul_w8", "route": "cuda",
             "source": "ceph_tpu_torch/csrc/gf2_matmul_w8.cu",
             "replaces": "ceph_tpu/ec/pallas_kernels.py:34",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
+            "max_abs_err": err, "ms": ms, "graph_ms": graph_ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None,
             "shape": f"[{EC_B}, {EC_K}, {EC_CHUNK}] -> "
                      f"[{EC_B}, {EC_M}, {EC_CHUNK}] u8; decode "
                      f"[{EC_K}, {EC_B * EC_CHUNK}] through the 64x64 "
                      f"inverse: kernel_ms={dec_ms:.4f} "
-                     f"bound_ms={dec_bound_ms:.4f} (bytes)"}
+                     f"graph_ms={dec_graph_ms:.4f} "
+                     f"plain_ms={dec_plain_ms:.3f} "
+                     f"bound_ms={dec_bound_ms:.4f}"}
 
 
 # -- phase 3 ----------------------------------------------------------
@@ -319,8 +494,8 @@ def phase_k2(dev):
     return {"name": "crush_rule_batched", "route": "cuda",
             "source": "ceph_tpu_torch/csrc/crush_rule.cu",
             "replaces": "ceph_tpu/crush/mapper_jax.py:628",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
+            "max_abs_err": err, "ms": ms, "graph_ms": None,
+            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None,
             "shape": f"map_big10k rule 0 numrep 3, {PGS} PGs, "
@@ -391,6 +566,21 @@ def phase_flagship(dev):
         out = fs.code.decode(chunks, [0, 1])
     torch.cuda.synchronize()
     dec_gbps = EC_K * EC_B * EC_CHUNK * ITERS / (time.perf_counter() - t0) / 1e9
+    # device time per call, by CUDA events around the same calls
+    enc_dev_ms = cuda_ms(lambda i: fs.code.encode_batched(stripes), ITERS)
+    dec_dev_ms = cuda_ms(lambda i: fs.code.decode(chunks, [0, 1]), ITERS)
+    # decode allocates its k x L output and nothing more: the survivors
+    # are read where they lie, not stacked
+    del out
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = fs.code.decode(chunks, [0, 1])
+    torch.cuda.synchronize()
+    dec_alloc = torch.cuda.max_memory_allocated(dev) - base
+    if dec_alloc > EC_K * EC_B * EC_CHUNK:
+        raise AssertionError(f"decode allocated {dec_alloc} bytes, more "
+                             f"than its k x L = {EC_K * EC_B * EC_CHUNK}")
 
     # outputs: shapes, golden vectors, parity against the host GF(2^8)
     # reference on a slice, decode round trip
@@ -410,7 +600,10 @@ def phase_flagship(dev):
     return {"step_ms": step_s * 1e3,
             "crush_rule0_mappings_per_s": rule0_rate,
             "crush_rule1_mappings_per_s": rule1_rate,
-            "ec_encode_gbps": enc_gbps, "ec_decode_gbps": dec_gbps}
+            "ec_encode_gbps": enc_gbps, "ec_decode_gbps": dec_gbps,
+            "ec_encode_device_ms_per_call": enc_dev_ms,
+            "ec_decode_device_ms_per_call": dec_dev_ms,
+            "ec_decode_bytes_allocated": dec_alloc}
 
 
 def main():
@@ -433,6 +626,7 @@ def main():
     took = build.build(verbose=True)
     log(f"build: {time.perf_counter() - t0:.1f} s "
         + json.dumps({k: round(v, 1) for k, v in took.items()}))
+    log_k1_sass()
 
     k1 = phase_k1(dev)
     k2 = phase_k2(dev)
@@ -450,8 +644,8 @@ def main():
             f"plain_ms={k['plain_ms']:.3f} bound_ms={k['bound_ms']:.4f} "
             f"({k['bound_by']}) launches={k['launches']} at {k['shape']}")
     keys = ("name", "route", "source", "replaces", "launches",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+            "max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     log(json.dumps({"kernels": [{key: k[key] for key in keys}
                                 for k in (k1, k2)]}))
     log("flagship: " + json.dumps({"card": card, **flag}))

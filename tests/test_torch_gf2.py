@@ -55,7 +55,7 @@ def test_plain_decode_inverse_matches_pallas_kernel():
     code = BitCode(k, m, _bm(k, m), device=CPU)
     present = tuple(range(2, 2 + k))           # data chunks 0, 1 lost
     (jinv,) = jcode._decode_mats(present)
-    (inv,) = code._decode_mats(present)
+    inv, _ = code._decode_mats(present)
     assert np.array_equal(inv.numpy(), np.asarray(jinv))
     full = code.all_chunks(torch.from_numpy(data))
     stack = full[list(present)]
@@ -160,3 +160,72 @@ def test_host_tables_match_jax_package():
 def test_other_layouts_are_not_ported(w, packetsize):
     with pytest.raises(NotImplementedError):
         Layout(w, packetsize)
+
+
+def _survivor_layouts(full, present, L):
+    """The same survivors three ways: separate tensors, rows at odd
+    offsets of one buffer, and rows of the full chunk array."""
+    sep = {i: torch.from_numpy(full[i].copy()) for i in present}
+    buf = torch.zeros(len(present) * (L + 3) + 1, dtype=torch.uint8)
+    odd = {}
+    for n, i in enumerate(present):
+        off = 1 + n * (L + 3)
+        buf[off:off + L] = torch.from_numpy(full[i])
+        odd[i] = buf[off:off + L]
+    rows = {i: torch.from_numpy(full)[i] for i in present}
+    return {"separate": sep, "odd offsets": odd, "rows of one array": rows}
+
+
+@pytest.mark.parametrize("L", [777, 4096])
+def test_decode_from_row_tables_matches_jax(L):
+    rng = np.random.default_rng(L)
+    k, m = 8, 3
+    data = rng.integers(0, 256, (k, L), dtype=np.uint8)
+    jcode = JBitCode(k, m, _bm(k, m), JLayout(8))
+    code = BitCode(k, m, _bm(k, m), device=CPU)
+    full = code.all_chunks(torch.from_numpy(data)).numpy()
+    for lost in ([0, 1], [3, 9], [8, 9, 10]):
+        present = [i for i in range(k + m) if i not in lost]
+        want = np.asarray(jcode.decode_data({i: full[i] for i in present}))
+        assert np.array_equal(want, data)
+        for label, chunks in _survivor_layouts(full, present, L).items():
+            got = code.decode_data(chunks).numpy()
+            assert np.array_equal(got, want), (lost, label)
+            out = code.decode(lost, chunks)
+            for i in lost:
+                assert np.array_equal(out[i].numpy(), full[i]), (lost, label)
+
+
+def test_row_table_matches_stacked_rows():
+    rng = np.random.default_rng(9)
+    bm = torch.from_numpy(_bm(5, 4))
+    rows = [torch.from_numpy(rng.integers(0, 256, 513, dtype=np.uint8))
+            for _ in range(5)]
+    assert torch.equal(gf2_matmul_w8(bm, rows),
+                       gf2_matmul_w8_plain(bm, torch.stack(rows)))
+    assert torch.equal(gf2_matmul_w8(bm, tuple(rows)),
+                       gf2_matmul_w8(bm, torch.stack(rows)))
+
+
+def test_wrapper_refuses_mixed_rows():
+    bm = torch.from_numpy(_bm(4, 2))
+    ok = [torch.zeros(16, dtype=torch.uint8) for _ in range(4)]
+    gf2_matmul_w8(bm, ok)
+    bad_len = ok[:3] + [torch.zeros(17, dtype=torch.uint8)]
+    bad_dtype = ok[:3] + [torch.zeros(16, dtype=torch.int16)]
+    bad_device = ok[:3] + [torch.zeros(16, dtype=torch.uint8,
+                                       device="meta")]
+    bad_dim = ok[:3] + [torch.zeros((1, 16), dtype=torch.uint8)]
+    strided = ok[:3] + [torch.zeros(32, dtype=torch.uint8)[::2]]
+    with pytest.raises(ValueError):
+        gf2_matmul_w8(bm, bad_len)
+    with pytest.raises(TypeError):
+        gf2_matmul_w8(bm, bad_dtype)
+    with pytest.raises(ValueError):
+        gf2_matmul_w8(bm, bad_device)
+    with pytest.raises(ValueError):
+        gf2_matmul_w8(bm, bad_dim)
+    with pytest.raises(ValueError):
+        gf2_matmul_w8(bm, strided)
+    with pytest.raises(ValueError):
+        gf2_matmul_w8(bm, ok[:3])
