@@ -1,11 +1,12 @@
-"""Map construction helpers: the port's copy of what
-``ceph_tpu/crush/builder.py:sample_cluster_map`` needs (straw2 buckets,
-a synthetic hierarchy, the simple replicated and EC rules).  Weights are
-16.16 fixed point.
+"""Map construction helpers: the port's copy of
+``ceph_tpu/crush/builder.py``'s bucket makers (uniform, list, tree,
+legacy straw and straw2), a synthetic hierarchy and the simple
+replicated and EC rules.  Weights are 16.16 fixed point.
 """
 
 from __future__ import annotations
 
+import math
 from typing import List, Sequence
 
 from . import constants as C
@@ -19,6 +20,96 @@ def make_straw2_bucket(items: Sequence[int], weights: Sequence[int],
     return Bucket(id=bid, alg=C.CRUSH_BUCKET_STRAW2, type=type_,
                   hash=hash_, items=list(items),
                   item_weights=list(weights), weight=sum(weights))
+
+
+def make_uniform_bucket(items: Sequence[int], item_weight: int,
+                        type_: int, bid: int = 0,
+                        hash_: int = C.CRUSH_HASH_RJENKINS1) -> Bucket:
+    """crush_make_uniform_bucket: one weight for every item."""
+    return Bucket(id=bid, alg=C.CRUSH_BUCKET_UNIFORM, type=type_,
+                  hash=hash_, items=list(items), item_weight=item_weight,
+                  weight=item_weight * len(items))
+
+
+def make_list_bucket(items: Sequence[int], weights: Sequence[int],
+                     type_: int, bid: int = 0,
+                     hash_: int = C.CRUSH_HASH_RJENKINS1) -> Bucket:
+    """crush_make_list_bucket: sum_weights[i] is the head prefix sum."""
+    sums, acc = [], 0
+    for w in weights:
+        acc += w
+        sums.append(acc)
+    return Bucket(id=bid, alg=C.CRUSH_BUCKET_LIST, type=type_,
+                  hash=hash_, items=list(items),
+                  item_weights=list(weights), sum_weights=sums,
+                  weight=acc)
+
+
+def make_tree_bucket(items: Sequence[int], weights: Sequence[int],
+                     type_: int, bid: int = 0,
+                     hash_: int = C.CRUSH_HASH_RJENKINS1) -> Bucket:
+    """crush_make_tree_bucket: item i sits at odd node ((i+1)<<1)-1 of an
+    implicit binary tree; an inner node weighs its subtree."""
+    n = len(items)
+    depth = max(1, math.ceil(math.log2(n)) + 1) if n > 1 else 1
+    num_nodes = 1 << depth
+    node_weights = [0] * num_nodes
+    for i, w in enumerate(weights):
+        j = ((i + 1) << 1) - 1
+        node_weights[j] = w
+        while True:   # up through the ancestors
+            low = j & -j
+            parent = (j - low) | (low << 1)
+            if parent >= num_nodes:
+                break
+            node_weights[parent] += w
+            j = parent
+    return Bucket(id=bid, alg=C.CRUSH_BUCKET_TREE, type=type_,
+                  hash=hash_, items=list(items), num_nodes=num_nodes,
+                  node_weights=node_weights, weight=sum(weights))
+
+
+def calc_straw(weights: Sequence[int]) -> List[int]:
+    """crush_calc_straw (builder.c) with straw_calc_version=1: straw
+    lengths (16.16) that make an item's chance of winning follow its
+    weight.  Version 1 has no equal-weight skip: at equal weights wnext
+    is 0, pbelow 1 and the straw carries over unchanged."""
+    size = len(weights)
+    reverse = sorted(range(size), key=lambda i: (weights[i], i))
+    straws = [0] * size
+    straw = 1.0
+    wbelow = 0.0
+    lastw = 0.0
+    numleft = size
+    i = 0
+    while i < size:
+        if weights[reverse[i]] == 0:
+            straws[reverse[i]] = 0
+            i += 1
+            numleft -= 1
+            continue
+        straws[reverse[i]] = int(straw * 0x10000)
+        i += 1
+        if i == size:
+            break
+        wbelow += (float(weights[reverse[i - 1]]) - lastw) * numleft
+        numleft -= 1
+        wnext = numleft * (weights[reverse[i]] - weights[reverse[i - 1]])
+        pbelow = wbelow / (wbelow + wnext)
+        straw *= (1.0 / pbelow) ** (1.0 / numleft)
+        lastw = float(weights[reverse[i - 1]])
+    return straws
+
+
+def make_straw_bucket(items: Sequence[int], weights: Sequence[int],
+                      type_: int, bid: int = 0,
+                      hash_: int = C.CRUSH_HASH_RJENKINS1) -> Bucket:
+    """crush_make_straw_bucket: the legacy straw bucket, its straws from
+    ``calc_straw``."""
+    return Bucket(id=bid, alg=C.CRUSH_BUCKET_STRAW, type=type_,
+                  hash=hash_, items=list(items),
+                  item_weights=list(weights),
+                  straws=calc_straw(list(weights)), weight=sum(weights))
 
 
 def add_simple_rule(cmap: CrushMap, root_id: int, leaf_type: int,

@@ -6,7 +6,8 @@ and with ``ceph_tpu/crush/hash.py``.  torch has no unsigned 32-bit
 arithmetic, so every value is an int64 tensor holding a u32 in
 [0, 2^32): subtractions and left shifts are masked back to 32 bits, and
 right shifts of such values are logical.  The same functions exist as
-CUDA device code in ``csrc/crush_rule.cu``.
+CUDA device code in ``csrc/crush_rule.cu`` and, on Python ints, for the
+scalar ``mapper_ref`` (``hash32_*_int``).
 """
 
 from __future__ import annotations
@@ -84,4 +85,70 @@ def crush_hash32_4(a, b, c, d) -> torch.Tensor:
     y, b, h = _mix(y, b, h)
     c, x, h = _mix(c, x, h)
     y, d, h = _mix(y, d, h)
+    return h
+
+
+# -- the same hashes on Python ints (the scalar mapper_ref) -------------
+
+
+def _mix_int(a, b, c):
+    a = (a - b - c) & M32
+    a ^= c >> 13
+    b = (b - c - a) & M32
+    b ^= (a << 8) & M32
+    c = (c - a - b) & M32
+    c ^= b >> 13
+    a = (a - b - c) & M32
+    a ^= c >> 12
+    b = (b - c - a) & M32
+    b ^= (a << 16) & M32
+    c = (c - a - b) & M32
+    c ^= b >> 5
+    a = (a - b - c) & M32
+    a ^= c >> 3
+    b = (b - c - a) & M32
+    b ^= (a << 10) & M32
+    c = (c - a - b) & M32
+    c ^= b >> 15
+    return a, b, c
+
+
+def hash32_2_int(a: int, b: int) -> int:
+    a &= M32
+    b &= M32
+    h = CRUSH_HASH_SEED ^ a ^ b
+    x, y = _X, _Y
+    a, b, h = _mix_int(a, b, h)
+    x, a, h = _mix_int(x, a, h)
+    b, y, h = _mix_int(b, y, h)
+    return h
+
+
+def hash32_3_int(a: int, b: int, c: int) -> int:
+    a &= M32
+    b &= M32
+    c &= M32
+    h = CRUSH_HASH_SEED ^ a ^ b ^ c
+    x, y = _X, _Y
+    a, b, h = _mix_int(a, b, h)
+    c, x, h = _mix_int(c, x, h)
+    y, a, h = _mix_int(y, a, h)
+    b, x, h = _mix_int(b, x, h)
+    y, c, h = _mix_int(y, c, h)
+    return h
+
+
+def hash32_4_int(a: int, b: int, c: int, d: int) -> int:
+    a &= M32
+    b &= M32
+    c &= M32
+    d &= M32
+    h = CRUSH_HASH_SEED ^ a ^ b ^ c ^ d
+    x, y = _X, _Y
+    a, b, h = _mix_int(a, b, h)
+    c, d, h = _mix_int(c, d, h)
+    a, x, h = _mix_int(a, x, h)
+    y, b, h = _mix_int(y, b, h)
+    c, x, h = _mix_int(c, x, h)
+    y, d, h = _mix_int(y, d, h)
     return h

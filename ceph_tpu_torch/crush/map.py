@@ -27,6 +27,12 @@ class Tunables:
     chooseleaf_stable: int = 1
 
     @classmethod
+    def legacy(cls) -> "Tunables":
+        """The most ancient behavior (builder.c set_legacy_crush_map):
+        local retries and the perm fallback on, 19 total tries."""
+        return cls(2, 5, 19, 0, 0, 0)
+
+    @classmethod
     def from_dict(cls, d):
         return cls(**{k: int(v) for k, v in d.items()})
 
@@ -34,8 +40,15 @@ class Tunables:
 @dataclass
 class Bucket:
     """One weighted container in the hierarchy (crush.h:219-333).
-    Weights are 16.16 fixed point; the per-alg payload fields are kept
-    so that any map loads, though the port maps straw2 buckets only."""
+
+    ``weight`` and all per-item weights are 16.16 fixed point.  Per-alg
+    payload fields:
+      uniform: item_weight (single value)
+      list:    item_weights + sum_weights (head prefix sums)
+      tree:    node_weights over the implicit binary tree, num_nodes
+      straw:   item_weights + precomputed straws
+      straw2:  item_weights
+    """
 
     id: int
     alg: int
@@ -119,6 +132,9 @@ class CrushMap:
     @property
     def max_buckets(self) -> int:
         return self._max_buckets
+
+    def bucket_by_id(self, bid: int) -> Optional[Bucket]:
+        return self.buckets.get(-1 - bid)
 
     def add_bucket(self, bucket: Bucket) -> int:
         """Insert with an explicit id (bucket.id < 0) or allocate the next

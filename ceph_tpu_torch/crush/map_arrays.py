@@ -1,27 +1,29 @@
 """Flat array (SoA) encoding of a CrushMap for the batched mapper.
 
-The port's copy of ``ceph_tpu/crush/map_arrays.py``, limited to the
-fields the straw2 rule walk reads.  Every bucket is a row indexed by
-bucket index (-1 - id), every per-item field a column padded to the
-widest bucket.  ``encode_map`` lowers a map to numpy; ``to_device``
-moves the arrays to tensors, with u32 fields carried as int32 bit
-patterns (torch has no u32 arithmetic; the kernel reads them back as
-u32 and the plain version widens them to int64).  The kernel's straw2
-reciprocals (``MapArrays.magic``) are derived from the item weights,
-never stored beside them.
+The port's copy of ``ceph_tpu/crush/map_arrays.py``, with the fields
+that the kernel and the plain walk read (the JAX layout's ``bhash``,
+``bid`` and ``has_arg`` are not carried: a bucket's id is ``-1 -
+index``, and ``MapStatic.hashes_present`` says which hashes occur).  Every bucket is a row indexed by bucket index (-1 - id), every
+per-item field a column padded to the widest bucket, the choose_args
+weight sets a [B, P, S] block.  ``encode_map`` lowers a map to numpy;
+``to_device`` moves the arrays to tensors, with u32 fields carried as
+int32 bit patterns (torch has no u32 arithmetic; the kernel reads them
+back as u32 and the plain version widens them to int64).  The kernel's
+straw2 reciprocals (``MapArrays.magic`` and ``arg_magic``) are derived
+from the weights straw2 reads, never stored beside them.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, fields
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import constants as C
 from .ln import straw2_magic
-from .map import CrushMap
+from .map import ChooseArgMap, CrushMap
 
 
 @dataclass(frozen=True)
@@ -30,7 +32,7 @@ class MapStatic:
 
     max_buckets: int
     max_devices: int
-    max_size: int
+    max_size: int        # padded item width S
     algs_present: Tuple[int, ...]
     hashes_present: Tuple[int, ...]
     has_choose_args: bool
@@ -42,32 +44,49 @@ class MapArrays:
     """The map as arrays (numpy from ``encode_map``, tensors from
     ``to_device``)."""
 
-    alg: object       # i32[B]   0 = no bucket at this index
-    btype: object     # i32[B]
-    size: object      # i32[B]
-    items: object     # i32[B,S]
-    weights: object   # u32[B,S] 16.16 per-item weights
+    alg: object           # i32[B]     0 = no bucket at this index
+    btype: object         # i32[B]
+    size: object          # i32[B]
+    nnodes: object        # i32[B]     tree num_nodes
+    items: object         # i32[B,S]
+    weights: object       # u32[B,S]   16.16 item weights (uniform: repeated)
+    sum_weights: object   # u32[B,S]   list head prefix sums
+    straws: object        # u32[B,S]   legacy straw lengths
+    node_weights: object  # u32[B,N]   tree node weights
+    arg_ids: object       # i32[B,S]   choose_args ids (else the items)
+    arg_weights: object   # u32[B,P,S] choose_args weight sets (else weights)
 
-    @property
-    def magic(self):
-        """u64[B,S] ``straw2_magic(weights)``: the kernel's division-free
-        reciprocal of each item weight (numpy u64 for numpy weights,
-        int64 bit patterns on the weights' device for a tensor).
-
-        ``weights`` is the one source: the magic is recomputed whenever
-        they are a new object or a tensor written in place (its
-        ``_version`` moved), so the kernel and the plain walk, which
-        divides by ``weights``, cannot disagree."""
-        w = self.weights
+    def _magic_of(self, name: str):
+        """``straw2_magic`` of the weights field ``name`` (numpy u64 for
+        numpy weights, int64 bit patterns on the weights' device for a
+        tensor), recomputed whenever the field is a new object or a
+        tensor written in place (its ``_version`` moved)."""
+        w = getattr(self, name)
         if not isinstance(w, torch.Tensor):
             return straw2_magic(w)
-        cached = self.__dict__.get("_magic")
+        key = "_magic_" + name
+        cached = self.__dict__.get(key)
         if cached is None or cached[0] is not w or cached[1] != w._version:
             m = straw2_magic(w.detach().cpu().numpy())
             cached = (w, w._version,
                       torch.from_numpy(m.view(np.int64)).to(w.device))
-            self.__dict__["_magic"] = cached
+            self.__dict__[key] = cached
         return cached[2]
+
+    @property
+    def magic(self):
+        """u64[B,S] ``straw2_magic(weights)``: the kernel's division-free
+        reciprocal of each item weight.  ``weights`` is the one source,
+        so the kernel and the plain walk, which divides by ``weights``,
+        cannot disagree."""
+        return self._magic_of("weights")
+
+    @property
+    def arg_magic(self):
+        """u64[B,P,S] ``straw2_magic(arg_weights)``: the reciprocals of
+        the choose_args weight sets, which straw2 reads in place of
+        ``weights`` when the map has choose_args."""
+        return self._magic_of("arg_weights")
 
 
 def _pad2(rows, width, dtype):
@@ -78,44 +97,70 @@ def _pad2(rows, width, dtype):
     return out
 
 
-def encode_map(cmap: CrushMap, has_choose_args: bool = False
+def encode_map(cmap: CrushMap, choose_args: Optional[ChooseArgMap] = None
                ) -> Tuple[MapStatic, MapArrays]:
-    """Lower a host CrushMap to the SoA view."""
+    """Lower a host CrushMap (and an optional choose_args set) to the
+    SoA view, field for field as ``ceph_tpu``'s ``encode_map``."""
     B = cmap.max_buckets
     bkts = cmap.buckets
     S = max([1] + [b.size for b in bkts.values()])
+    N = max([1] + [b.num_nodes for b in bkts.values()
+                   if b.alg == C.CRUSH_BUCKET_TREE])
+    P = max([1] + [len(a.weight_set) for a in (choose_args or {}).values()
+                   if a.weight_set is not None])
     alg = np.zeros(B, np.int32)
     btype = np.zeros(B, np.int32)
-    bhash = np.zeros(B, np.int32)
     size = np.zeros(B, np.int32)
-    items_rows, w_rows = [], []
+    nnodes = np.zeros(B, np.int32)
+    rows = {k: [] for k in ("items", "w", "sw", "straws", "nodes", "ids")}
+    arg_w = np.zeros((B, P, S), np.uint32)
     for i in range(B):
         b = bkts.get(i)
         if b is None:
-            items_rows.append([])
-            w_rows.append([])
+            for r in rows.values():
+                r.append([])
             continue
-        alg[i], btype[i], bhash[i] = b.alg, b.type, b.hash
-        size[i] = b.size
-        items_rows.append(b.items)
-        w_rows.append([b.item_weight] * b.size
-                      if b.alg == C.CRUSH_BUCKET_UNIFORM else b.item_weights)
+        alg[i], btype[i] = b.alg, b.type
+        size[i], nnodes[i] = b.size, b.num_nodes
+        w = ([b.item_weight] * b.size if b.alg == C.CRUSH_BUCKET_UNIFORM
+             else b.item_weights)
+        rows["items"].append(b.items)
+        rows["w"].append(w)
+        rows["sw"].append(b.sum_weights)
+        rows["straws"].append(b.straws)
+        rows["nodes"].append(b.node_weights)
+        ids, wset = b.items, None
+        a = (choose_args or {}).get(i)
+        if a is not None:
+            if a.ids is not None:
+                ids = a.ids
+            wset = a.weight_set
+        rows["ids"].append(ids)
+        for p in range(P):
+            row = w if wset is None else wset[min(p, len(wset) - 1)]
+            arg_w[i, p, :len(row)] = row
     t = cmap.tunables
+    present = [int(a) for a in alg if a]
     static = MapStatic(
         max_buckets=B,
         max_devices=cmap.max_devices,
         max_size=S,
-        algs_present=tuple(sorted(set(int(a) for a in alg if a))),
-        hashes_present=tuple(sorted(set(
-            int(h) for h, a in zip(bhash, alg) if a))),
-        has_choose_args=has_choose_args,
+        algs_present=tuple(sorted(set(present))),
+        hashes_present=tuple(sorted(set(b.hash for b in bkts.values()))),
+        has_choose_args=bool(choose_args),
         tunables=(t.choose_local_tries, t.choose_local_fallback_tries,
                   t.choose_total_tries, t.chooseleaf_descend_once,
                   t.chooseleaf_vary_r, t.chooseleaf_stable),
     )
-    arrays = MapArrays(alg=alg, btype=btype, size=size,
-                       items=_pad2(items_rows, S, np.int32),
-                       weights=_pad2(w_rows, S, np.uint32))
+    arrays = MapArrays(
+        alg=alg, btype=btype, size=size, nnodes=nnodes,
+        items=_pad2(rows["items"], S, np.int32),
+        weights=_pad2(rows["w"], S, np.uint32),
+        sum_weights=_pad2(rows["sw"], S, np.uint32),
+        straws=_pad2(rows["straws"], S, np.uint32),
+        node_weights=_pad2(rows["nodes"], N, np.uint32),
+        arg_ids=_pad2(rows["ids"], S, np.int32),
+        arg_weights=arg_w)
     return static, arrays
 
 

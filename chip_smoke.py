@@ -24,8 +24,17 @@ Phases (any failure raises and the script exits non-zero):
 3. K2 ``crush_rule_batched`` against its plain version on ``map_big10k``
    (rules 0 and 1) for 4,096 random xs and for the main path's 65,536
    PGs, on a copy of the map whose straw2 draws tie (``tie_map``) for
-   the same 65,536 PGs, then against every golden case of the four
-   in-scope maps in ``tests/golden``.
+   the same 65,536 PGs, then against every golden case of all nine
+   maps in ``tests/golden`` (every bucket algorithm, choose_args,
+   legacy tunables).  Then three full-size variants of ``map_big10k``
+   (10,000 OSDs, 521 buckets), with 2% of OSDs out and 1% at half
+   weight: ``map_big10k_mixed`` (hosts uniform, list, tree and straw in
+   turn, straw racks, straw2 root) under optimal and under legacy
+   tunables, and ``map_big10k`` with a crush-compat choose_args set (1
+   weight set for rule 0, 11 for rule 1).  For each, rules 0 and 1 over
+   65,536 PGs: K2 equal to the plain version on all of them and to the
+   port's scalar ``mapper_ref`` on the first 4,096, then timed beside
+   the all-straw2 map.
 4. The main path at full width, with every launch counter set to 0
    first: the flagship step (CRUSH ``map_big10k`` rule 0, numrep 3, over
    65,536 PGs, plus RS(8,3) ``encode_batched`` of 4 stripes x 8 x 1 MiB)
@@ -35,7 +44,19 @@ Phases (any failure raises and the script exits non-zero):
    give the data back and allocate no more than its k x L output (the
    survivors are read in place), and the first 256 PGs of both rules
    must match the golden vectors (as ``bench.py:_golden_check`` does).
+5. The placement pipeline, with the launch counters set to 0 again: an
+   OSDMap on ``map_big10k`` (2% of OSDs down, 1% out, 0.5% at weight
+   0x8000, 5% with a primary affinity), a replicated pool (size 3, rule
+   0, 262,144 PGs) and an EC 8+3 pool (size 11, rule 1, 65,536 PGs,
+   pgp_num 49,152), pg_upmap_items on 1% of the PGs, pg_upmap on 0.1%,
+   pg_temp on 1%, primary_temp on 0.1%, some aimed at out OSDs.
+   ``PoolMapper.map_all`` on the card must equal the scalar
+   ``OSDMap.pg_to_up_acting_osds`` on every PG with an entry and 4,096
+   more per pool, again after an upmap edit and ``refresh_tables``;
+   then ``map_all`` is timed per pool (PGs/s).
 
+The scalar oracles run in worker processes (spawned, stopped at the
+end) beside the card's work.
 Tolerance is zero everywhere: every output is an integer.  Kernel times
 (``ms``) come from CUDA events around eager calls; K1's are also timed
 around replays of a CUDA graph of its launches (``graph_ms``: device
@@ -45,16 +66,21 @@ operations over its peak rate for their type (published H100 SXM
 figures; K1's 1-bit products are counted at the int8 rate, which is
 lower).  It prints
 the card's name and power limit, one line per kernel, one ``kernels``
-JSON line, the flagship rates, and last the contract line
+JSON line (K2's launches: phase 4's, and one a ``map_all`` call in
+phase 5), K2's variants, the
+flagship rates, the pipeline's rates, and last the contract line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the rest of the repository beside it, it exits non-zero and prints no
 result.
 """
 
 import copy
+import concurrent.futures
 import itertools
 import json
+import multiprocessing
 import os
+import pickle
 import subprocess
 import sys
 import time
@@ -70,15 +96,31 @@ INT8_TENSOR_OPS_PER_S = 1979e12
 # 64 INT32 lanes per SM against 128 FP32 lanes whose 67 TFLOP/s counts
 # an FMA as 2: one integer op per lane per clock is 67e12 / 4.
 INT32_OPS_PER_S = 67e12 / 4
-# Integer ops of one straw2 item draw in csrc/crush_rule.cu: hash3 is 3
-# xors plus 5 mix rounds of 36 ops (183), crush_ln about 15, the
-# quotient counted as 1 (a multiply-high by the item's magic; kept at 1
-# from when it was a division, so bounds compare), mask/compare/select 3.
-OPS_PER_DRAW = 202
+# Integer ops of one bucket draw in csrc/crush_rule.cu, by bucket
+# algorithm (the columns of ``draws``).  hash3 is 3 xors plus 5 mix
+# rounds of 36 ops (183), hash4 4 xors plus 6 rounds (220).
+#  1 uniform, a perm step: hash3, a u32 modulo (~20), the trace-back's
+#    2 compares and 2 selects: 207.
+#  2 list, an item: hash4, mask, multiply, shift, compare, select: 225.
+#  3 tree, a level: hash4, multiply-high, the child's index (ctz-free:
+#    and, negate, shift, subtract, add), compare, select: 228.
+#  4 straw, an item: hash3, mask, multiply, subtract, shift, or, compare,
+#    select: 190.
+#  5 straw2, an item: hash3, crush_ln about 15, the quotient counted as 1
+#    (a multiply-high by the item's magic; kept at 1 from when it was a
+#    division, so bounds compare), mask/compare/select 3: 202.
+OPS_PER_DRAW = {1: 207, 2: 225, 3: 228, 4: 190, 5: 202}
 K2_LANES_PER_PG = 4  # kGroup in csrc/crush_rule.cu
 
-GOLDEN_MAPS = ("map_big10k", "map_flat12", "map_tree3", "map_weird")
+GOLDEN_MAPS = ("map_big10k", "map_flat12", "map_tree3", "map_weird",
+               "map_list", "map_straw", "map_uniform",
+               "map_tree3_chooseargs", "map_tree3_legacy")
 PGS = 65536
+ORACLE_XS = 4096   # inputs per variant and rule held to mapper_ref
+# Phase 5: the pipeline on map_big10k.  262,144 PGs is ~100 PG replicas
+# per OSD (mon_target_pg_per_osd) x 10,000 OSDs / 3, to a power of two.
+POOL_REP = dict(pool_id=1, size=3, rule=0, pg_num=262144, pgp_num=262144)
+POOL_EC = dict(pool_id=2, size=11, rule=1, pg_num=65536, pgp_num=49152)
 ITERS = 8
 EC_B, EC_K, EC_M, EC_CHUNK = 4, 8, 3, 1 << 20
 
@@ -243,6 +285,86 @@ def tie_map(cmap):
     single.item_weights[single.size - 3] = 0xFFFFFFFF
     heavy.item_weights = [0xFFFFFFFF] * heavy.size
     return t
+
+
+def mixed_big10k(cmap, tunables=None):
+    """``map_big10k`` rebuilt with the port's builder: its host buckets
+    take uniform (their OSDs weigh the same), list, tree and straw in
+    turn, its racks are straw, its root stays straw2; the same items,
+    weights, ids and rules, under ``tunables`` (default: the map's)."""
+    from ceph_tpu_torch.crush import builder as B
+    from ceph_tpu_torch.crush.map import CrushMap
+
+    t = CrushMap(copy.deepcopy(tunables or cmap.tunables))
+    host_makers = (None, B.make_list_bucket, B.make_tree_bucket,
+                   B.make_straw_bucket)
+    n_host = 0
+    for i in sorted(cmap.buckets):
+        b = cmap.buckets[i]
+        if b.type == 1:
+            mk = host_makers[n_host % 4]
+            n_host += 1
+            if mk is None:
+                if len(set(b.item_weights)) != 1:
+                    raise AssertionError("a uniform host needs equal "
+                                         "OSD weights")
+                nb = B.make_uniform_bucket(b.items, b.item_weights[0],
+                                           b.type, bid=b.id)
+            else:
+                nb = mk(b.items, b.item_weights, b.type, bid=b.id)
+        elif b.type == 2:
+            nb = B.make_straw_bucket(b.items, b.item_weights, b.type,
+                                     bid=b.id)
+        else:
+            nb = B.make_straw2_bucket(b.items, b.item_weights, b.type,
+                                      bid=b.id)
+        t.add_bucket(nb)
+    t.rules = copy.deepcopy(cmap.rules)
+    t.max_devices = cmap.max_devices
+    return t
+
+
+def compat_choose_args(cmap, positions, seed):
+    """A choose_args set as the mgr balancer's crush-compat mode writes
+    one: for every bucket a weight set of ``positions`` rows, each the
+    item weights perturbed by up to 15% (from ``seed``), and ids (the
+    device ids, and shadow ids 10,000 below each child bucket's)."""
+    from ceph_tpu_torch.crush.map import ChooseArg, ChooseArgMap
+
+    rng = np.random.default_rng(seed)
+    cam = ChooseArgMap()
+    for i in sorted(cmap.buckets):
+        b = cmap.buckets[i]
+        rows = [[max(1, int(w * f)) for w, f in
+                 zip(b.item_weights, rng.uniform(0.85, 1.15, b.size))]
+                for _ in range(positions)]
+        ids = [it - 10000 if it < 0 else it for it in b.items]
+        cam[i] = ChooseArg(ids=ids, weight_set=rows)
+    return cam
+
+
+def _oracle_rule(cmap, ruleno, numrep, weight, cargs, xs):
+    """A worker's share of the scalar oracle: mapper_ref over ``xs``."""
+    from ceph_tpu_torch.crush.mapper_ref import crush_do_rule
+
+    return [crush_do_rule(cmap, ruleno, int(x), numrep, weight,
+                          choose_args=cargs) for x in xs]
+
+
+def _oracle_pgs(blob, pool_id, pss):
+    """A worker's share of the scalar oracle: pg_to_up_acting_osds of
+    the pickled OSDMap ``blob`` over ``pss``."""
+    m = pickle.loads(blob)
+    return [m.pg_to_up_acting_osds(pool_id, int(ps)) for ps in pss]
+
+
+def oracle(pool, fn, head, items, chunk=256):
+    """Submit ``fn(*head, chunk)`` for the chunks of ``items`` to the
+    process pool; returns a callable that waits and gives the list of
+    all results in order."""
+    futs = [pool.submit(fn, *head, items[i:i + chunk])
+            for i in range(0, len(items), chunk)]
+    return lambda: [r for f in futs for r in f.result()]
 
 
 def golden_check(case, res, lens, label, n=256):
@@ -414,7 +536,88 @@ def phase_k1(dev):
 # -- phase 3 ----------------------------------------------------------
 
 
-def phase_k2(dev):
+def k2_bound_ms(arrays, prog, n, weight, draws):
+    """K2's least time on the card for ``n`` xs: the larger of the bytes
+    it must move (xs in, results and lengths out, the weights and the
+    map arrays it reads, the ln tables) over the memory rate and the
+    integer ops of this run's bucket draws (``draws`` i32[n, 5], by
+    algorithm) over the INT32 rate.  Returns (bound_ms, bound_by, ops
+    per x)."""
+    import torch
+
+    names = ["alg", "btype", "size", "items"]
+    if prog.general:
+        names += ["nnodes", "weights", "sum_weights", "straws",
+                  "node_weights"] + (["arg_ids"] if prog.has_choose_args
+                                     else [])
+    magic = arrays.arg_magic if prog.has_choose_args else arrays.magic
+    nbytes = (n * 4 * (2 + prog.result_max) + weight.numel() * 4
+              + sum(getattr(arrays, k).numel() * 4 for k in names)
+              + magic.numel() * 8 + 514 * 8)
+    per_alg = draws.to(torch.int64).sum(0).tolist()
+    ops = sum(per_alg[a] * OPS_PER_DRAW[a + 1] for a in range(5))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", ops / n)
+
+
+def time_k2(arrays, prog, weight, label):
+    """K2 at the main path's shape (65,536 PGs, ``ITERS`` batches): its
+    ms by CUDA events, the plain version's, and the bound."""
+    import torch
+
+    from ceph_tpu_torch.crush.mapper import (N_ALGS, crush_rule_batched,
+                                             map_batch_plain)
+
+    dev = weight.device
+    batches = [torch.arange(i * PGS, (i + 1) * PGS, dtype=torch.int32,
+                            device=dev) for i in range(ITERS)]
+    draws = torch.zeros((PGS, N_ALGS), dtype=torch.int32, device=dev)
+    bounds = []
+    for b in batches:
+        crush_rule_batched(arrays, prog, weight, b, draws=draws)
+        bounds.append(k2_bound_ms(arrays, prog, PGS, weight, draws))
+    ms = cuda_ms(lambda i: crush_rule_batched(arrays, prog, weight,
+                                              batches[i % ITERS]),
+                 ITERS, warmup=1)
+    plain_ms = cuda_ms(lambda i: map_batch_plain(arrays, prog, weight,
+                                                 batches[0]), 1)
+    bound_ms = sum(b[0] for b in bounds) / len(bounds)
+    ops_per_pg = sum(b[2] for b in bounds) / len(bounds)
+    out = {"label": label, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bounds[0][1],
+           "ops_per_pg": ops_per_pg, "general": prog.general}
+    log(f"k2 time {label}: kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} "
+        f"bound_ms={bound_ms:.4f} ({out['bound_by']}) "
+        f"ops_per_pg={ops_per_pg:.1f} general={prog.general}")
+    return out
+
+
+def k2_variants(cmap):
+    """The full-size variants of ``map_big10k`` beside the all-straw2
+    map: (label, map, choose_args for rule 0, for rule 1)."""
+    from ceph_tpu_torch.crush.map import Tunables
+
+    return [
+        ("map_big10k_mixed", mixed_big10k(cmap), None, None),
+        ("map_big10k_mixed legacy", mixed_big10k(cmap, Tunables.legacy()),
+         None, None),
+        ("map_big10k choose_args", cmap, compat_choose_args(cmap, 1, 7),
+         compat_choose_args(cmap, 11, 8)),
+    ]
+
+
+def variant_weight(n):
+    """Device weights for the variants: 2% of OSDs out, 1% at half."""
+    rng = np.random.default_rng(9)
+    w = np.full(n, 0x10000, np.uint32)
+    w[rng.choice(n, n // 50, replace=False)] = 0
+    w[rng.choice(n, n // 100, replace=False)] = 0x8000
+    return w
+
+
+def phase_k2(dev, pool):
     import torch
 
     from ceph_tpu_torch.crush.map_arrays import as_i32
@@ -424,42 +627,55 @@ def phase_k2(dev):
 
     err = 0
     cmap, cases = load_map("map_big10k")
+
+    # the scalar oracle's share, submitted first: the workers run while
+    # the card does the rest
+    vweight_np = variant_weight(cmap.max_devices)
+    variants = k2_variants(cmap)
+    oracle_xs = np.arange(ORACLE_XS, dtype=np.uint32)
+    pending = {}
+    for label, vmap, ca0, ca1 in variants:
+        for ruleno, numrep, ca in ((0, 3, ca0), (1, 11, ca1)):
+            pending[label, ruleno] = oracle(
+                pool, _oracle_rule, (vmap, ruleno, numrep,
+                                     vweight_np.tolist(), ca),
+                oracle_xs.tolist())
+
     mapper = BatchedMapper(cmap, device=dev)
     weight = as_i32(np.asarray(cases[0]["weight"], np.uint32), dev)
     rng = np.random.default_rng(3)
     xs = as_i32(rng.integers(0, 2 ** 32, 4096, dtype=np.uint64)
                 .astype(np.uint32), dev)
     pgs = torch.arange(PGS, dtype=torch.int32, device=dev)
+
+    def check(arrays, prog, w, x, label):
+        nonlocal err
+        got = crush_rule_batched(arrays, prog, w, x)
+        want = map_batch_plain(arrays, prog, w, x)
+        e = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
+        if e:
+            raise AssertionError(f"K2 differs from plain on {label}: {e}")
+        err = max(err, e)
+        log(f"k2 check {label}: equal")
+        return got
+
     for ruleno, numrep in ((0, 3), (1, 11)):
         prog = mapper.program(ruleno, numrep)
         for label, x in (("4096 random xs", xs),
                          (f"main-path PGs [0, {PGS})", pgs)):
-            got = crush_rule_batched(mapper.arrays, prog, weight, x)
-            want = map_batch_plain(mapper.arrays, prog, weight, x)
-            e = max(max_abs_err(got[0], want[0]),
-                    max_abs_err(got[1], want[1]))
-            if e:
-                raise AssertionError(f"K2 differs from plain on map_big10k "
-                                     f"rule {ruleno}, {label}: {e}")
-            err = max(err, e)
-            log(f"k2 check map_big10k rule {ruleno} numrep {numrep} "
-                f"{label}: equal")
+            check(mapper.arrays, prog, weight, x,
+                  f"map_big10k rule {ruleno} numrep {numrep} {label}")
 
     tmapper = BatchedMapper(tie_map(cmap), device=dev)
     for ruleno, numrep in ((0, 3), (1, 11)):
-        prog = tmapper.program(ruleno, numrep)
-        got = crush_rule_batched(tmapper.arrays, prog, weight, pgs)
-        want = map_batch_plain(tmapper.arrays, prog, weight, pgs)
-        e = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
-        if e:
-            raise AssertionError(f"K2 differs from plain on the tie map, "
-                                 f"rule {ruleno}: {e}")
-        log(f"k2 check tie map rule {ruleno} numrep {numrep} main-path "
-            f"PGs [0, {PGS}): equal")
+        check(tmapper.arrays, tmapper.program(ruleno, numrep), weight, pgs,
+              f"tie map rule {ruleno} numrep {numrep} main-path PGs "
+              f"[0, {PGS})")
 
     for name in GOLDEN_MAPS:
         gmap, gcases = load_map(name)
-        gm = BatchedMapper(gmap, device=dev)
+        gm = BatchedMapper(gmap, choose_args=gmap.choose_args.get("golden"),
+                           device=dev)
         for case in gcases:
             n = case["x1"] - case["x0"]
             xs_c = np.arange(case["x0"], case["x1"], dtype=np.uint32)
@@ -469,38 +685,44 @@ def phase_k2(dev):
                          n=n)
         log(f"k2 golden {name}: {len(gcases)} cases equal")
 
+    # the full-size variants: K2 against the plain walk on 65,536 PGs and
+    # its first ORACLE_XS outputs against mapper_ref; timed once every
+    # oracle is done, so that no worker competes with the host's launches
+    vweight = as_i32(vweight_np, dev)
+    timed = []
+    for label, vmap, ca0, ca1 in variants:
+        for ruleno, numrep, ca in ((0, 3, ca0), (1, 11, ca1)):
+            vm = BatchedMapper(vmap, choose_args=ca, device=dev)
+            prog = vm.program(ruleno, numrep)
+            tag = f"{label} rule {ruleno} numrep {numrep}"
+            res, lens = check(vm.arrays, prog, vweight, pgs,
+                              f"{tag} main-path PGs [0, {PGS})")
+            res = res[:ORACLE_XS].cpu().numpy()
+            lens = lens[:ORACLE_XS].cpu().numpy()
+            want = pending.pop((label, ruleno))()
+            for i, w in enumerate(want):
+                if res[i, :lens[i]].tolist() != w:
+                    raise AssertionError(
+                        f"K2 differs from mapper_ref on {tag} at x={i}: "
+                        f"{res[i, :lens[i]].tolist()} != {w}")
+            log(f"k2 check {tag}: first {ORACLE_XS} equal to mapper_ref")
+            timed.append((vm.arrays, prog, tag))
+    rows = [time_k2(arrays, prog, vweight, tag)
+            for arrays, prog, tag in timed]
+
     # time at the main path's shape: rule 0, numrep 3, 65,536 PGs
-    prog = mapper.program(0, 3)
-    batches = [torch.arange(i * PGS, (i + 1) * PGS, dtype=torch.int32,
-                            device=dev) for i in range(ITERS)]
-    draws = torch.zeros(PGS, dtype=torch.int32, device=dev)
-    total_draws = 0
-    for b in batches:
-        crush_rule_batched(mapper.arrays, prog, weight, b, draws=draws)
-        total_draws += int(draws.sum().item())
-    draws_per_launch = total_draws / len(batches)
-    ms = cuda_ms(lambda i: crush_rule_batched(mapper.arrays, prog, weight,
-                                              batches[i % ITERS]),
-                 ITERS, warmup=1)
-    plain_ms = cuda_ms(lambda i: map_batch_plain(mapper.arrays, prog,
-                                                 weight, batches[0]), 1)
-    a = mapper.arrays
-    nbytes = (PGS * 4 + PGS * 4 * 4 + weight.numel() * 4
-              + sum(t.numel() * t.element_size()
-                    for t in (a.alg, a.btype, a.size, a.items, a.magic))
-              + 514 * 8)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = draws_per_launch * OPS_PER_DRAW / INT32_OPS_PER_S * 1e3
+    main = time_k2(mapper.arrays, mapper.program(0, 3), weight,
+                   "map_big10k rule 0 numrep 3 (straw2)")
     return {"name": "crush_rule_batched", "route": "cuda",
             "source": "ceph_tpu_torch/csrc/crush_rule.cu",
             "replaces": "ceph_tpu/crush/mapper_jax.py:628",
-            "max_abs_err": err, "ms": ms, "graph_ms": None,
-            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None,
+            "max_abs_err": err, "ms": main["ms"], "graph_ms": None,
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None,
             "shape": f"map_big10k rule 0 numrep 3, {PGS} PGs, "
-                     f"{draws_per_launch / PGS:.1f} draws per PG, "
-                     f"{K2_LANES_PER_PG} lanes per PG"}
+                     f"{main['ops_per_pg']:.1f} ops per PG, "
+                     f"{K2_LANES_PER_PG} lanes per PG",
+            "variants": rows}
 
 
 # -- phase 4 ----------------------------------------------------------
@@ -606,6 +828,173 @@ def phase_flagship(dev):
             "ec_decode_bytes_allocated": dec_alloc}
 
 
+# -- phase 5 ----------------------------------------------------------
+
+
+def build_cluster(cmap, seed=12):
+    """An OSDMap on ``map_big10k``: every OSD exists; from ``seed`` 2% are
+    down, 1% out, 0.5% at weight 0x8000 and 5% carry a non-default
+    primary affinity; the replicated and the EC pool of phase 5.
+    Returns (map, out OSDs)."""
+    from ceph_tpu_torch.osdmap.osdmap import (OSD_UP, OSDMap, PgPool,
+                                              POOL_TYPE_ERASURE,
+                                              POOL_TYPE_REPLICATED)
+
+    m = OSDMap(cmap)
+    n = cmap.max_devices
+    for o in range(n):
+        m.add_osd(o)
+    rng = np.random.default_rng(seed)
+    for o in rng.choice(n, n * 2 // 100, replace=False):
+        m.osd_state[o] &= ~OSD_UP
+    out = rng.choice(n, n // 100, replace=False)
+    for o in out:
+        m.osd_weight[o] = 0
+    for o in rng.choice(n, n // 200, replace=False):
+        m.osd_weight[o] = 0x8000
+    for o in rng.choice(n, n * 5 // 100, replace=False):
+        m.set_primary_affinity(int(o), int(rng.integers(0, 0x10000)))
+    for spec, ptype in ((POOL_REP, POOL_TYPE_REPLICATED),
+                        (POOL_EC, POOL_TYPE_ERASURE)):
+        m.pools[spec["pool_id"]] = PgPool(
+            pool_type=ptype, size=spec["size"], pg_num=spec["pg_num"],
+            pgp_num=spec["pgp_num"], crush_rule=spec["rule"])
+    return m, [int(o) for o in out]
+
+
+def add_exceptions(m, pool_id, up, ulen, rng, out_osds, frac=1.0,
+                   temps=True):
+    """Exception entries on ``frac`` x (1% pg_upmap_items, 0.1%
+    pg_upmap and, with ``temps``, 1% pg_temp, 0.1% primary_temp) of the
+    pool's PGs, from ``rng``; a tenth of the upmap targets are out OSDs.  ``up``/``ulen``:
+    the pool's mapping without exceptions (the items' sources).  Returns
+    the PGs that got an entry."""
+    pool = m.pools[pool_id]
+    n, R, D = pool.pg_num, pool.size, m.max_osd
+
+    def pick(count):
+        return [int(p) for p in rng.choice(n, max(1, int(count * frac)),
+                                           replace=False)]
+
+    def target():
+        return int(out_osds[rng.integers(len(out_osds))]) \
+            if rng.random() < 0.1 else int(rng.integers(D))
+
+    touched = set()
+    for ps in pick(n // 100):
+        k = max(int(ulen[ps]), 1)
+        m.pg_upmap_items[(pool_id, ps)] = [
+            (int(up[ps, rng.integers(k)]), target())
+            for _ in range(1 + ps % 2)]
+        touched.add(ps)
+    for ps in pick(n // 1000):
+        osds = [int(o) for o in rng.choice(D, R, replace=False)]
+        if rng.random() < 0.2:
+            osds[int(rng.integers(R))] = int(
+                out_osds[rng.integers(len(out_osds))])
+        m.pg_upmap[(pool_id, ps)] = osds
+        touched.add(ps)
+    if not temps:
+        return touched
+    for ps in pick(n // 100):
+        m.pg_temp[(pool_id, ps)] = [int(o) for o in
+                                    rng.choice(D, R, replace=False)]
+        touched.add(ps)
+    for ps in pick(n // 1000):
+        m.primary_temp[(pool_id, ps)] = int(rng.integers(D))
+        touched.add(ps)
+    return touched
+
+
+def check_pool(pool, m, pool_id, out, pss, label):
+    """``out`` (PoolMapper.map_all) against the scalar
+    pg_to_up_acting_osds on the PGs ``pss``, in the process pool."""
+    pss = sorted(pss)
+    want = oracle(pool, _oracle_pgs, (pickle.dumps(m), pool_id), pss,
+                  chunk=512)
+    host = {k: v.cpu().numpy() for k, v in out.items()}
+    for ps, (up, upp, act, actp) in zip(pss, want()):
+        got = (host["up"][ps, :host["up_len"][ps]].tolist(),
+               int(host["up_primary"][ps]),
+               host["acting"][ps, :host["acting_len"][ps]].tolist(),
+               int(host["acting_primary"][ps]))
+        if got != (up, upp, act, actp):
+            raise AssertionError(f"PoolMapper differs from "
+                                 f"pg_to_up_acting_osds on {label} pg "
+                                 f"{pool_id}.{ps}: {got} != "
+                                 f"{(up, upp, act, actp)}")
+    log(f"pipeline check {label}: {len(pss)} PGs equal to "
+        f"pg_to_up_acting_osds")
+
+
+def phase_pipeline(dev, pool):
+    """PoolMapper.map_all on the card against the scalar
+    pg_to_up_acting_osds, for both pools, before and after an upmap
+    edit, then timed.  Returns (rows, K2's launches from map_all): one
+    a call, asserted; the bare K2 timing beside it is not counted."""
+    from ceph_tpu_torch.crush.mapper import crush_rule_batched
+    from ceph_tpu_torch.osdmap.pipeline import PoolMapper
+
+    cmap, _ = load_map("map_big10k")
+    m, out_osds = build_cluster(cmap)
+    rng = np.random.default_rng(13)
+    touched = {}
+    calls = 0  # map_all calls
+    for spec in (POOL_REP, POOL_EC):
+        pid = spec["pool_id"]
+        base = {k: v.cpu().numpy()
+                for k, v in PoolMapper(m, pid, device=dev).map_all().items()}
+        calls += 1
+        touched[pid] = add_exceptions(m, pid, base["up"], base["up_len"],
+                                      rng, out_osds)
+    rows = []
+    for spec in (POOL_REP, POOL_EC):
+        pid, n = spec["pool_id"], spec["pg_num"]
+        label = (f"pool {pid} ({'replicated' if pid == 1 else 'EC 8+3'}, "
+                 f"size {spec['size']}, pg_num {n}, pgp_num "
+                 f"{spec['pgp_num']})")
+        pm = PoolMapper(m, pid, device=dev)
+        out = pm.map_all()
+        for k, v in out.items():
+            want = (n, spec["size"]) if k in ("up", "acting") else (n,)
+            if tuple(v.shape) != want or v.device.type != dev.type:
+                raise AssertionError(f"map_all {k}: {tuple(v.shape)} on "
+                                     f"{v.device}")
+        sample = set(int(p) for p in rng.choice(n, ORACLE_XS,
+                                                replace=False))
+        pss = sample | touched[pid]
+        check_pool(pool, m, pid, out, pss,
+                   f"{label}, every exception PG and {ORACLE_XS} more")
+        # an upmap edit: new pg_upmap_items and pg_upmap on a few PGs
+        host = {k: v.cpu().numpy() for k, v in out.items()}
+        edited = add_exceptions(m, pid, host["up"], host["up_len"], rng,
+                                out_osds, frac=0.05, temps=False)
+        pm.refresh_tables()
+        check_pool(pool, m, pid, pm.map_all(), pss | edited,
+                   f"{label} after an upmap edit and refresh_tables")
+        w, st, pa = pm.runtime_args()
+        ms = cuda_ms(lambda i: pm.map_all(w, st, pa), ITERS, warmup=1)
+        calls += 2 + ITERS + 1
+        launches = crush_rule_batched.launches
+        if launches != calls:
+            raise AssertionError(f"{calls} map_all calls launched K2 "
+                                 f"{launches} times")
+        k2_ms = cuda_ms(lambda i: crush_rule_batched(pm.arrays, pm.prog, w,
+                                                     pm.pps_i32),
+                        ITERS, warmup=1)
+        crush_rule_batched.launches = launches
+        row = {"pool": pid, "pg_num": n, "size": spec["size"],
+               "map_all_ms": ms, "pgs_per_s": n / ms * 1e3,
+               "k2_ms": k2_ms,
+               "exception_pgs": len(touched[pid]),
+               "checked_pgs": len(pss | edited)}
+        log(f"pipeline {label}: map_all_ms={ms:.4f} "
+            f"pgs_per_s={row['pgs_per_s']:.1f} k2_ms={k2_ms:.4f} "
+            f"({len(touched[pid])} PGs with exception entries)")
+        rows.append(row)
+    return rows, calls
+
+
 def main():
     import torch
 
@@ -628,14 +1017,30 @@ def main():
         + json.dumps({k: round(v, 1) for k, v in took.items()}))
     log_k1_sass()
 
-    k1 = phase_k1(dev)
-    k2 = phase_k2(dev)
+    # the scalar oracles (mapper_ref, pg_to_up_acting_osds) run in worker
+    # processes beside the card's work
+    workers = max(1, min(7, (os.cpu_count() or 2) - 1))
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=workers, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        k1 = phase_k1(dev)
+        k2 = phase_k2(dev, pool)
 
-    gf2_kernels.gf2_matmul_w8.launches = 0
-    mapper.crush_rule_batched.launches = 0
-    flag = phase_flagship(dev)
-    k1["launches"] = gf2_kernels.gf2_matmul_w8.launches
-    k2["launches"] = mapper.crush_rule_batched.launches
+        # the main paths, each with every launch count at 0 before it
+        gf2_kernels.gf2_matmul_w8.launches = 0
+        mapper.crush_rule_batched.launches = 0
+        flag = phase_flagship(dev)
+        k1["launches"] = gf2_kernels.gf2_matmul_w8.launches
+        k2["launches"] = mapper.crush_rule_batched.launches
+        gf2_kernels.gf2_matmul_w8.launches = 0
+        mapper.crush_rule_batched.launches = 0
+        pipe, pipe_launches = phase_pipeline(dev, pool)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    if pipe_launches < 1:
+        raise AssertionError("crush_rule_batched was not launched on the "
+                             "pipeline path")
+    k2["launches"] += pipe_launches
     for k in (k1, k2):
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was not launched on the "
@@ -648,7 +1053,10 @@ def main():
             "bound_by", "library_ms")
     log(json.dumps({"kernels": [{key: k[key] for key in keys}
                                 for k in (k1, k2)]}))
+    log("k2_variants: " + json.dumps({"card": card,
+                                       "variants": k2["variants"]}))
     log("flagship: " + json.dumps({"card": card, **flag}))
+    log("pipeline: " + json.dumps({"card": card, "pools": pipe}))
     log(f"gpu: {card}")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

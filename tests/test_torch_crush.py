@@ -28,6 +28,9 @@ from ceph_tpu_torch.crush.mapper import (BatchedMapper, build_rule_fn,
 
 CPU = "cpu"
 IN_SCOPE = ["map_big10k", "map_flat12", "map_tree3", "map_weird"]
+# every bucket algorithm, choose_args and legacy tunables map now
+# (tests/test_torch_crush_buckets.py); these maps, given a bucket hash
+# other than rjenkins1, stand for a map past what the kernel holds
 OUT_OF_SCOPE = ["map_list", "map_straw", "map_uniform",
                 "map_tree3_chooseargs", "map_tree3_legacy"]
 
@@ -124,6 +127,7 @@ def test_rule_fn_tracks_runtime_weights():
 def test_out_of_scope_maps_raise(name):
     d = load(name)
     cmap = CrushMap.from_dict(d["map"])
+    cmap.buckets[min(cmap.buckets)].hash = 1
     case = d["cases"][0]
     with pytest.raises(NotImplementedError):
         BatchedMapper(cmap, device=CPU).map_batch(
@@ -133,13 +137,24 @@ def test_out_of_scope_maps_raise(name):
         build_rule_fn(cmap, case["ruleno"], case["numrep"], device=CPU)
 
 
-def test_local_tries_rule_step_raises():
-    cmap = sample_cluster_map()
-    static, _ = encode_map(cmap)
-    steps = [(10, 2, 0)] + [(s.op, s.arg1, s.arg2)
-                            for s in cmap.rules[0].steps]
+def test_bucket_wider_than_the_kernel_raises():
+    """A bucket past the kernel's key width is refused on both paths,
+    before any walk."""
+    from ceph_tpu_torch.crush.builder import add_simple_rule, \
+        make_straw2_bucket
+    from ceph_tpu_torch.crush.mapper import MAX_BUCKET
+
+    cmap = CrushMap()
+    n = MAX_BUCKET + 1
+    root = cmap.add_bucket(make_straw2_bucket(range(n), [0x10000] * n, 1))
+    add_simple_rule(cmap, root, 0, ruleno=0)
     with pytest.raises(NotImplementedError):
-        compile_rule(static, steps, 3)
+        BatchedMapper(cmap, device=CPU).map_batch(
+            0, np.arange(4, dtype=np.uint32), 3,
+            np.full(n, 0x10000, np.uint32))
+    static, _ = encode_map(cmap)
+    with pytest.raises(NotImplementedError):
+        compile_rule(static, [(1, root, 0), (6, 0, 0), (4, 0, 0)], 3)
 
 
 def test_wrapper_checks_inputs():
@@ -152,6 +167,28 @@ def test_wrapper_checks_inputs():
                            torch.arange(4, dtype=torch.int64))
     with pytest.raises(ValueError):
         mapper.program(0, 33)
+
+
+def test_launch_plan_is_kept_until_a_tensor_changes():
+    """K2's parameter block and map pointers are built once per (arrays,
+    program) and rebuilt when a field the kernel reads, or the weights
+    behind its reciprocals, changes; a bad field is refused."""
+    from ceph_tpu_torch.crush.mapper import _launch_plan
+
+    mapper = BatchedMapper(sample_cluster_map(), device=CPU)
+    arrays, dev = mapper.arrays, torch.device(CPU)
+    prog = mapper.program(0, 3)
+    p, m = _launch_plan(arrays, prog, dev)
+    assert (p.B, p.S, p.result_max, p.general) == (
+        *arrays.items.shape, 3, 0)
+    assert m.items == arrays.items.data_ptr()
+    assert _launch_plan(arrays, prog, dev) == (p, m)
+    arrays.weights[0, 0] += 1  # new reciprocals
+    _, m2 = _launch_plan(arrays, prog, dev)
+    assert m2 is not m and m2.magic == arrays.magic.data_ptr()
+    arrays.items = arrays.items.to(torch.int64)
+    with pytest.raises(ValueError):
+        _launch_plan(arrays, prog, dev)
 
 
 def test_xs_are_u32():

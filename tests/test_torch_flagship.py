@@ -25,6 +25,8 @@ from ceph_tpu_torch.ec import gf
 from ceph_tpu_torch.ec.engine import BitCode
 from ceph_tpu_torch.ec.rs import RSCode
 from ceph_tpu_torch.flagship import flagship
+from ceph_tpu_torch.osdmap.osdmap import OSDMap, PgPool
+from ceph_tpu_torch.osdmap.pipeline import PoolMapper
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 CPU = "cpu"
@@ -97,8 +99,10 @@ def test_port_never_imports_jax_or_the_jax_package():
                          env=env, capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr
-    assert "ceph_tpu_torch.crush.mapper" in modules
-    assert "ceph_tpu_torch.flagship" in modules
+    for name in ("crush.mapper", "crush.mapper_ref", "crush.builder",
+                 "osdmap.osdmap", "osdmap.pipeline", "convert",
+                 "flagship"):
+        assert "ceph_tpu_torch." + name in modules
 
 
 def test_entry_points_default_to_the_card():
@@ -106,6 +110,10 @@ def test_entry_points_default_to_the_card():
         pytest.skip("a CUDA device is present: the default is usable")
     cmap = sample_cluster_map()
     bm = gf.expand_bitmatrix(gf.rs_vandermonde_matrix(8, 3)[8:])
+    osdmap = OSDMap(cmap)
+    for o in range(48):
+        osdmap.add_osd(o)
+    osdmap.pools[1] = PgPool(size=3, pg_num=16)
     calls = [
         lambda: RSCode(8, 3),
         lambda: BitCode(8, 3, bm),
@@ -113,10 +121,13 @@ def test_entry_points_default_to_the_card():
         lambda: BatchedMapper(cmap),
         lambda: build_rule_fn(cmap, 0, 3),
         lambda: flagship(),
+        lambda: PoolMapper(osdmap, 1),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+    out = PoolMapper(osdmap, 1, device=CPU).map_all()
+    assert out["up"].device.type == "cpu" and out["up"].shape == (16, 3)
     from ceph_tpu.crush.map_arrays import encode_map as jencode_map
     from ceph_tpu.crush.builder import sample_cluster_map as jsample
 
