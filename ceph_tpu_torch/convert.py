@@ -1,10 +1,11 @@
 """Carry state across from the JAX package.
 
-``ceph_tpu`` keeps a map as numpy ``MapStatic``/``MapArrays``, a code
-as its coding bit matrix and a cluster map as ``OSDMap.to_dict()``.
-These functions read those fields (by attribute or key name: nothing
-of ``ceph_tpu`` is imported) and build the port's counterparts, so that
-both packages can compute on the same state.
+``ceph_tpu`` keeps a map as numpy ``MapStatic``/``MapArrays`` and a code
+as its coding bit matrix.  These functions read those fields (by
+attribute name: nothing of ``ceph_tpu`` is imported) and build the
+port's counterparts, so that both packages can compute on the same
+state.  A cluster map crosses as ``OSDMap.to_dict()``, which the port's
+``OSDMap.from_dict`` reads.
 """
 
 from __future__ import annotations
@@ -14,11 +15,9 @@ from typing import Tuple
 
 import numpy as np
 
-from .crush.map import CrushMap
 from .crush.map_arrays import MapArrays, MapStatic, to_device
 from .device import resolve_device
 from .ec.engine import BitCode, Layout
-from .osdmap.osdmap import OSDMap, PgPool
 
 
 def map_arrays_from_numpy(static, arrays, device="cuda"
@@ -43,25 +42,6 @@ def map_arrays_from_numpy(static, arrays, device="cuda"
     port_arrays = MapArrays(**{f.name: np.asarray(getattr(arrays, f.name))
                                for f in fields(MapArrays)})
     return port_static, to_device(port_arrays, dev)
-
-
-def osdmap_from_dict(d) -> OSDMap:
-    """A ``ceph_tpu`` ``OSDMap.to_dict()`` -> the port's ``OSDMap`` (host
-    state: its ``PoolMapper``s take the device)."""
-    m = OSDMap(CrushMap.from_dict(d["crush"]))
-    m.epoch = d.get("epoch", 1)
-    m.max_osd = d["max_osd"]
-    m.osd_state = list(d["osd_state"])
-    m.osd_weight = list(d["osd_weight"])
-    aff = d.get("osd_primary_affinity")
-    m.osd_primary_affinity = None if aff is None else list(aff)
-    m.pools = {int(k): PgPool.from_dict(v) for k, v in d["pools"].items()}
-    m.pg_upmap = {tuple(k): list(v) for k, v in d["pg_upmap"]}
-    m.pg_upmap_items = {tuple(k): [tuple(p) for p in v]
-                        for k, v in d["pg_upmap_items"]}
-    m.pg_temp = {tuple(k): list(v) for k, v in d["pg_temp"]}
-    m.primary_temp = {tuple(k): v for k, v in d["primary_temp"]}
-    return m
 
 
 def bitcode_from_numpy(coding_bm, k: int, m: int, device="cuda") -> BitCode:

@@ -1,6 +1,7 @@
 """Map construction helpers: the port's copy of
 ``ceph_tpu/crush/builder.py``'s bucket makers (uniform, list, tree,
-legacy straw and straw2), a synthetic hierarchy and the simple
+legacy straw and straw2), the bucket edit primitives the
+``CrushWrapper`` builds on, a synthetic hierarchy and the simple
 replicated and EC rules.  Weights are 16.16 fixed point.
 """
 
@@ -110,6 +111,83 @@ def make_straw_bucket(items: Sequence[int], weights: Sequence[int],
                   hash=hash_, items=list(items),
                   item_weights=list(weights),
                   straws=calc_straw(list(weights)), weight=sum(weights))
+
+
+def _rebuild_payload(b: Bucket) -> None:
+    """Recompute the per-alg payload from items/item_weights (the role
+    of builder.c's per-alg add/remove/adjust helpers, builder.h:163-283,
+    done by reconstruction)."""
+    if b.alg == C.CRUSH_BUCKET_UNIFORM:
+        b.weight = b.item_weight * len(b.items)
+        return
+    if b.alg == C.CRUSH_BUCKET_LIST:
+        t = make_list_bucket(b.items, b.item_weights, b.type, b.id, b.hash)
+        b.sum_weights, b.weight = t.sum_weights, t.weight
+        return
+    if b.alg == C.CRUSH_BUCKET_TREE:
+        t = make_tree_bucket(b.items, b.item_weights, b.type, b.id, b.hash)
+        b.num_nodes, b.node_weights, b.weight = \
+            t.num_nodes, t.node_weights, t.weight
+        return
+    if b.alg == C.CRUSH_BUCKET_STRAW:
+        b.straws = calc_straw(b.item_weights)
+    b.weight = sum(b.item_weights)
+
+
+def bucket_add_item(b: Bucket, item: int, weight: int) -> None:
+    """crush_bucket_add_item (builder.h:214)."""
+    if b.alg == C.CRUSH_BUCKET_UNIFORM:
+        if b.items and weight != b.item_weight:
+            raise ValueError("uniform bucket requires equal item weights")
+        b.item_weight = weight
+        b.items.append(item)
+    else:
+        b.items.append(item)
+        b.item_weights.append(weight)
+    _rebuild_payload(b)
+
+
+def bucket_remove_item(b: Bucket, item: int) -> int:
+    """crush_bucket_remove_item (builder.h:232); returns the removed
+    weight."""
+    pos = b.items.index(item)
+    b.items.pop(pos)
+    if b.alg == C.CRUSH_BUCKET_UNIFORM:
+        removed = b.item_weight
+    else:
+        removed = b.item_weights.pop(pos)
+    _rebuild_payload(b)
+    return removed
+
+
+def bucket_adjust_item_weight(b: Bucket, item: int, weight: int) -> int:
+    """crush_bucket_adjust_item_weight (builder.h:223); returns the
+    weight delta."""
+    pos = b.items.index(item)
+    if b.alg == C.CRUSH_BUCKET_UNIFORM:
+        diff = (weight - b.item_weight) * len(b.items)
+        b.item_weight = weight
+    else:
+        diff = weight - b.item_weights[pos]
+        b.item_weights[pos] = weight
+    _rebuild_payload(b)
+    return diff
+
+
+def reweight_bucket(cmap: CrushMap, b: Bucket) -> None:
+    """crush_reweight_bucket (builder.h:242): recompute this bucket's
+    item weights from its children's, bottom-up."""
+    for pos, item in enumerate(b.items):
+        if item < 0:
+            child = cmap.bucket_by_id(item)
+            if child is None:
+                continue
+            reweight_bucket(cmap, child)
+            if b.alg == C.CRUSH_BUCKET_UNIFORM:
+                b.item_weight = child.weight
+            else:
+                b.item_weights[pos] = child.weight
+    _rebuild_payload(b)
 
 
 def add_simple_rule(cmap: CrushMap, root_id: int, leaf_type: int,

@@ -1,8 +1,8 @@
 """The CRUSH map data model (host side).
 
-The port's own copy of ``ceph_tpu/crush/map.py``, limited to what the
-port reads: buckets (the weighted hierarchy), rules (placement
-programs), tunables and choose_args, built from the dict/JSON form.
+The port's own copy of ``ceph_tpu/crush/map.py``: buckets (the weighted
+hierarchy), rules (placement programs), tunables and choose_args, with
+the dict form both packages read and write.
 Bucket ids are negative (id = -1 - index); devices are >= 0, as in the
 reference (src/crush/crush.h:219-451).
 """
@@ -31,6 +31,9 @@ class Tunables:
         """The most ancient behavior (builder.c set_legacy_crush_map):
         local retries and the perm fallback on, 19 total tries."""
         return cls(2, 5, 19, 0, 0, 0)
+
+    def to_dict(self):
+        return dict(self.__dict__)
 
     @classmethod
     def from_dict(cls, d):
@@ -67,6 +70,41 @@ class Bucket:
     def size(self) -> int:
         return len(self.items)
 
+    def item_weight_at(self, pos: int) -> int:
+        """crush_get_bucket_item_weight semantics (crush.c)."""
+        if pos < 0 or pos >= self.size:
+            return 0
+        if self.alg == C.CRUSH_BUCKET_UNIFORM:
+            return self.item_weight
+        if self.alg == C.CRUSH_BUCKET_TREE:
+            return self.node_weights[((pos + 1) << 1) - 1]
+        return self.item_weights[pos]
+
+    def to_dict(self):
+        d = {
+            "id": self.id,
+            "alg": self.alg,
+            "hash": self.hash,
+            "type": self.type,
+            "weight": self.weight,
+            "size": self.size,
+            "items": list(self.items),
+        }
+        if self.alg == C.CRUSH_BUCKET_UNIFORM:
+            d["item_weight"] = self.item_weight
+        elif self.alg == C.CRUSH_BUCKET_LIST:
+            d["item_weights"] = list(self.item_weights)
+            d["sum_weights"] = list(self.sum_weights)
+        elif self.alg == C.CRUSH_BUCKET_TREE:
+            d["num_nodes"] = self.num_nodes
+            d["node_weights"] = list(self.node_weights)
+        elif self.alg == C.CRUSH_BUCKET_STRAW:
+            d["item_weights"] = list(self.item_weights)
+            d["straws"] = list(self.straws)
+        else:
+            d["item_weights"] = list(self.item_weights)
+        return d
+
     @classmethod
     def from_dict(cls, d):
         return cls(
@@ -99,6 +137,10 @@ class Rule:
 
     steps: List[RuleStep]
     type: int = 1
+
+    def to_dict(self):
+        return {"steps": [[s.op, s.arg1, s.arg2] for s in self.steps],
+                "type": self.type}
 
     @classmethod
     def from_dict(cls, d):
@@ -151,10 +193,13 @@ class CrushMap:
             raise ValueError(f"bucket id {bucket.id} already present")
         self.buckets[idx] = bucket
         self._max_buckets = max(self._max_buckets, idx + 1)
-        for it in bucket.items:
+        self._note_devices(bucket.items)
+        return bucket.id
+
+    def _note_devices(self, items):
+        for it in items:
             if it >= 0:
                 self.max_devices = max(self.max_devices, it + 1)
-        return bucket.id
 
     def add_rule(self, rule: Rule, ruleno: int = -1) -> int:
         if ruleno < 0:
@@ -165,6 +210,31 @@ class CrushMap:
             raise ValueError(f"rule {ruleno} already present")
         self.rules[ruleno] = rule
         return ruleno
+
+    @property
+    def max_rules(self) -> int:
+        return (max(self.rules) + 1) if self.rules else 0
+
+    def to_dict(self):
+        d = {
+            "max_devices": self.max_devices,
+            "max_buckets": self.max_buckets,
+            "max_rules": self.max_rules,
+            "tunables": self.tunables.to_dict(),
+            "buckets": [self.buckets[i].to_dict()
+                        for i in sorted(self.buckets)],
+            "rules": [{"ruleno": rno, **self.rules[rno].to_dict()}
+                      for rno in sorted(self.rules)],
+        }
+        if self.choose_args:
+            d["choose_args"] = {
+                str(key): [{"bucket_index": bi,
+                            "ids": ca.ids,
+                            "weight_set": ca.weight_set}
+                           for bi, ca in sorted(cam.items())]
+                for key, cam in self.choose_args.items()
+            }
+        return d
 
     @classmethod
     def from_dict(cls, d) -> "CrushMap":

@@ -1,8 +1,9 @@
 """The cluster map: pools, OSD states/weights, upmap tables, CRUSH.
 
-The port's copy of ``ceph_tpu/osdmap/osdmap.py`` (without its wire
-envelope): the host-side data model and the scalar pipeline with the
-semantics of the reference's OSDMap (src/osd/OSDMap.{h,cc}):
+The port's copy of ``ceph_tpu/osdmap/osdmap.py``: the host-side data
+model, its dict and versioned JSON forms (the same files as
+``ceph_tpu``'s), and the scalar pipeline with the semantics of the
+reference's OSDMap (src/osd/OSDMap.{h,cc}):
 
     pg -> pps seed        (pg_pool_t::raw_pg_to_pps, osd_types.cc:1798)
     -> crush do_rule      (_pg_to_raw_osds, OSDMap.cc:2433)
@@ -24,6 +25,7 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
+from ..common import encoding
 from ..crush.constants import CRUSH_ITEM_NONE
 from ..crush.hash import hash32_2_int
 from ..crush.map import CrushMap
@@ -93,6 +95,15 @@ class PgPool:
             return hash32_2_int(m, pool_id)
         return (m + pool_id) & 0xFFFFFFFF
 
+    def to_dict(self):
+        return {
+            "pool_type": self.pool_type, "size": self.size,
+            "min_size": self.min_size, "pg_num": self.pg_num,
+            "pgp_num": self.pgp_num, "crush_rule": self.crush_rule,
+            "flags": self.flags,
+            "erasure_code_profile": self.erasure_code_profile,
+        }
+
     @classmethod
     def from_dict(cls, d):
         # fields this copy does not know are skipped
@@ -102,6 +113,11 @@ class PgPool:
 
 class OSDMap:
     """The mutable host cluster map (src/osd/OSDMap.h)."""
+
+    # version of the JSON form: to_json wraps to_dict in the versioned
+    # envelope; from_json also reads a bare to_dict (writer v0)
+    STRUCT_V = 1
+    COMPAT_V = 1
 
     def __init__(self, crush: Optional[CrushMap] = None):
         self.epoch = 1
@@ -286,3 +302,54 @@ class OSDMap:
             if acting_primary == -1:
                 acting_primary = up_primary
         return up, up_primary, acting, acting_primary
+
+    # -- serialization (the map file, as ceph_tpu writes it) ----------
+    def to_dict(self):
+        def kv(d):
+            return [[list(k), v] for k, v in sorted(d.items())]
+
+        return {
+            "epoch": self.epoch,
+            "max_osd": self.max_osd,
+            "osd_state": list(self.osd_state),
+            "osd_weight": list(self.osd_weight),
+            "osd_primary_affinity": self.osd_primary_affinity,
+            "pools": {str(k): v.to_dict() for k, v in self.pools.items()},
+            "pg_upmap": kv(self.pg_upmap),
+            "pg_upmap_items": kv(self.pg_upmap_items),
+            "pg_temp": kv(self.pg_temp),
+            "primary_temp": kv(self.primary_temp),
+            "crush": self.crush.to_dict(),
+        }
+
+    @classmethod
+    def from_dict(cls, d) -> "OSDMap":
+        m = cls(CrushMap.from_dict(d["crush"]))
+        m.epoch = d.get("epoch", 1)
+        m.max_osd = d["max_osd"]
+        m.osd_state = list(d["osd_state"])
+        m.osd_weight = list(d["osd_weight"])
+        aff = d.get("osd_primary_affinity")
+        m.osd_primary_affinity = None if aff is None else list(aff)
+        m.pools = {int(k): PgPool.from_dict(v)
+                   for k, v in d["pools"].items()}
+        m.pg_upmap = {tuple(k): list(v) for k, v in d["pg_upmap"]}
+        m.pg_upmap_items = {tuple(k): [tuple(p) for p in v]
+                            for k, v in d["pg_upmap_items"]}
+        m.pg_temp = {tuple(k): list(v) for k, v in d["pg_temp"]}
+        m.primary_temp = {tuple(k): v for k, v in d["primary_temp"]}
+        return m
+
+    def to_json(self) -> str:
+        return encoding.encode(self.to_dict(), self.STRUCT_V,
+                               self.COMPAT_V)
+
+    @classmethod
+    def from_json(cls, s: str) -> "OSDMap":
+        v, d = encoding.decode_any(s, supported=cls.STRUCT_V,
+                                   struct="osdmap.json")
+        try:
+            return cls.from_dict(d)
+        except (KeyError, TypeError, ValueError, AttributeError) as e:
+            raise encoding.MalformedInput(
+                f"osdmap.json v{v}: bad payload: {e!r}")

@@ -54,6 +54,24 @@ Phases (any failure raises and the script exits non-zero):
    ``OSDMap.pg_to_up_acting_osds`` on every PG with an entry and 4,096
    more per pool, again after an upmap edit and ``refresh_tables``;
    then ``map_all`` is timed per pool (PGs/s).
+6. The upmap balancer, with K2's launch count set to 0 again.  (a)
+   ``run_offline`` (max_deviation 1, 10 iterations, 10 rounds, seed 10,
+   patience 2) on ``make_synthetic_map``'s 1,000 OSDs (250 hosts, 25
+   racks, 1x/2x/4x weights, ssd and hdd classes: pool 1 of 32,768 PGs on
+   the plain rule, pools 2 and 3 of 8,192 on the class rules, through
+   the shadow trees), on the card and then, in a worker, on the CPU
+   (the plain walk; started after the card's run is timed and waited
+   for before (b), so no timed part shares the host with it): the
+   records must be equal but for their host-clock fields, and so must the final pg_upmap_items; every changed PG (up
+   to 4,096 a pool) of mappers built before the run must, after
+   ``refresh_tables``, equal the scalar pipeline; before the run K2
+   must equal its plain walk on each pool (the shadow trees).  (b) On
+   phase 5's cluster through its cached mappers: ``evaluate`` of both
+   pools, an upmap edit, ``evaluate`` again, then ``calc_pg_upmaps``
+   (max_deviation 5, 10 iterations, pool 1: osdmaptool's defaults);
+   the changed PGs must equal the scalar pipeline and pool 1's stddev
+   must fall if anything changed.  Each part's time is split into
+   ``map_all`` (CUDA events), the host tally and the optimizer's search.
 
 The scalar oracles run in worker processes (spawned, stopped at the
 end) beside the card's work.
@@ -67,8 +85,9 @@ figures; K1's 1-bit products are counted at the int8 rate, which is
 lower).  It prints
 the card's name and power limit, one line per kernel, one ``kernels``
 JSON line (K2's launches: phase 4's, and one a ``map_all`` call in
-phase 5), K2's variants, the
-flagship rates, the pipeline's rates, and last the contract line
+phases 5 and 6), K2's variants, the
+flagship rates, the pipeline's rates, the balancer's records and time
+split, and last the contract line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the rest of the repository beside it, it exits non-zero and prints no
 result.
@@ -930,8 +949,9 @@ def check_pool(pool, m, pool_id, out, pss, label):
 def phase_pipeline(dev, pool):
     """PoolMapper.map_all on the card against the scalar
     pg_to_up_acting_osds, for both pools, before and after an upmap
-    edit, then timed.  Returns (rows, K2's launches from map_all): one
-    a call, asserted; the bare K2 timing beside it is not counted."""
+    edit, then timed.  Returns (rows, K2's launches from map_all: one a
+    call, asserted; the bare K2 timing beside it is not counted, the
+    map, its cached PoolMappers by pool)."""
     from ceph_tpu_torch.crush.mapper import crush_rule_batched
     from ceph_tpu_torch.osdmap.pipeline import PoolMapper
 
@@ -947,13 +967,13 @@ def phase_pipeline(dev, pool):
         calls += 1
         touched[pid] = add_exceptions(m, pid, base["up"], base["up_len"],
                                       rng, out_osds)
-    rows = []
+    rows, mappers = [], {}
     for spec in (POOL_REP, POOL_EC):
         pid, n = spec["pool_id"], spec["pg_num"]
         label = (f"pool {pid} ({'replicated' if pid == 1 else 'EC 8+3'}, "
                  f"size {spec['size']}, pg_num {n}, pgp_num "
                  f"{spec['pgp_num']})")
-        pm = PoolMapper(m, pid, device=dev)
+        pm = mappers[pid] = PoolMapper(m, pid, device=dev)
         out = pm.map_all()
         for k, v in out.items():
             want = (n, spec["size"]) if k in ("up", "acting") else (n,)
@@ -992,7 +1012,290 @@ def phase_pipeline(dev, pool):
             f"pgs_per_s={row['pgs_per_s']:.1f} k2_ms={k2_ms:.4f} "
             f"({len(touched[pid])} PGs with exception entries)")
         rows.append(row)
-    return rows, calls
+    return rows, calls, m, mappers
+
+
+# -- phase 6 ----------------------------------------------------------
+
+# 6a: 250 hosts of 4 OSDs in 25 racks, 1x/2x/4x weights, ssd and hdd
+# classes; pool 1 (32,768 PGs) on the plain rule, pools 2 and 3 (8,192
+# each) on the class rules: ~147 PG replicas an OSD, inside Ceph's
+# mon_target_pg_per_osd 100 / mon_max_pg_per_osd 250 band.
+SYNTH = dict(n_osds=1000, osds_per_host=4, hosts_per_rack=10,
+             pg_num=32768, seed=10, uneven=True,
+             device_classes=["ssd", "hdd"])
+# max_deviation 1 is bench.py's balancer lane; max_iterations 10 is
+# Ceph's upmap_max_optimizations default
+OFFLINE = dict(max_deviation=1, max_iterations=10, max_rounds=10, seed=10,
+               patience=2)
+# 6b: osdmaptool --upmap's defaults on pool 1 of phase 5's cluster
+UPMAP_BIG = dict(max_deviation=5, max_iterations=10, only_pools={1})
+TIMING = ("sweep_s", "sweep_mappings_per_sec")
+CHANGED_MAX = 4096  # changed PGs held to the scalar pipeline, per check
+
+
+class SplitTimer:
+    """While active, splits the balancer's time: every
+    ``PoolMapper.map_all`` (CUDA events, the card synchronised after
+    each call so that the host tally is timed alone), the host tally
+    (``balancer._tally``: the copy to the host and the grouping) and
+    ``calc_pg_upmaps`` (its own sweep's map_all and tally subtracted,
+    the rest is the optimizer's search).  ``calls`` counts every
+    map_all call; ``zero`` restarts the split."""
+
+    def __init__(self, dev):
+        self.dev = dev
+        self.calls = 0
+        self.zero()
+
+    def zero(self):
+        self.calls0 = self.calls
+        self.map_all_ms = 0.0    # device time, CUDA events
+        self.map_all_s = 0.0     # host clock around each call + sync
+        self.tally_s = 0.0
+        self.search_s = 0.0
+
+    def __enter__(self):
+        import torch
+
+        from ceph_tpu_torch.mgr import balancer_module
+        from ceph_tpu_torch.osdmap import balancer, pipeline
+
+        cuda = self.dev.type == "cuda"
+        saved = (pipeline.PoolMapper.map_all, balancer._tally,
+                 balancer_module.calc_pg_upmaps)
+        self._restore = lambda: (
+            setattr(pipeline.PoolMapper, "map_all", saved[0]),
+            setattr(balancer, "_tally", saved[1]),
+            setattr(balancer_module, "calc_pg_upmaps", saved[2]))
+
+        def map_all(pm, *a, **k):
+            t0 = time.perf_counter()
+            if cuda:
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+            out = saved[0](pm, *a, **k)
+            if cuda:
+                stop.record()
+                stop.synchronize()
+                self.map_all_ms += start.elapsed_time(stop)
+            self.map_all_s += time.perf_counter() - t0
+            self.calls += 1
+            return out
+
+        def tally(*a):
+            t0 = time.perf_counter()
+            saved[1](*a)
+            self.tally_s += time.perf_counter() - t0
+
+        def calc(*a, **k):
+            return self.calc(saved[2], *a, **k)
+
+        pipeline.PoolMapper.map_all = map_all
+        balancer._tally = tally
+        balancer_module.calc_pg_upmaps = calc
+        return self
+
+    def __exit__(self, *exc):
+        self._restore()
+
+    def calc(self, fn, *a, **k):
+        """``fn`` (calc_pg_upmaps), its search time booked."""
+        t0 = time.perf_counter()
+        sweep0 = self.map_all_s + self.tally_s
+        out = fn(*a, **k)
+        self.search_s += (time.perf_counter() - t0
+                          - (self.map_all_s + self.tally_s - sweep0))
+        return out
+
+    def split(self, wall_s):
+        return {"wall_s": wall_s, "map_all_calls": self.calls - self.calls0,
+                "map_all_device_ms": self.map_all_ms,
+                "map_all_host_s": self.map_all_s, "tally_s": self.tally_s,
+                "search_s": self.search_s,
+                "other_host_s": wall_s - self.map_all_s - self.tally_s
+                - self.search_s}
+
+
+def _offline_cpu(synth, offline):
+    """Phase 6a's run on the CPU (the port's plain walk), in a worker:
+    (record, final pg_upmap_items, seconds)."""
+    from ceph_tpu_torch.mgr.balancer_module import run_offline
+    from ceph_tpu_torch.mgr.synthetic import make_synthetic_map
+
+    m, w, _ = make_synthetic_map(**synth)
+    t0 = time.perf_counter()
+    rec = run_offline(m, w, device="cpu", **offline)
+    return rec, sorted(m.pg_upmap_items.items()), time.perf_counter() - t0
+
+
+def check_changed(pool, m, mappers, changed, label):
+    """The cached ``mappers``' rows, after ``refresh_tables``, against the
+    scalar pipeline on the changed PGs (the first ``CHANGED_MAX`` of each
+    pool).  Returns the number checked."""
+    n = 0
+    for pid in sorted({p for p, _ in changed}):
+        pss = sorted(ps for p, ps in changed if p == pid)[:CHANGED_MAX]
+        mappers[pid].refresh_tables()
+        check_pool(pool, m, pid, mappers[pid].map_all(), pss,
+                   f"{label}, pool {pid}, {len(pss)} changed PGs")
+        n += len(pss)
+    return n
+
+
+def changed_pgs(before, after):
+    return {pg for pg in set(before) | set(after)
+            if before.get(pg) != after.get(pg)}
+
+
+def phase_balancer_offline(dev, pool):
+    """6a: ``run_offline`` on the card, then in a worker on the CPU (started
+    once the card's run is timed, so that nothing shares the host with
+    it); every changed PG held to the scalar pipeline.  Returns (the
+    record with its time split, map_all calls, a function that waits for
+    the CPU run, holds the card's record and final upmaps to it and adds
+    its times)."""
+    from ceph_tpu_torch.crush.mapper import (crush_rule_batched,
+                                             map_batch_plain)
+    from ceph_tpu_torch.mgr.balancer_module import run_offline
+    from ceph_tpu_torch.mgr.synthetic import make_synthetic_map
+    from ceph_tpu_torch.osdmap.pipeline import PoolMapper
+
+    m, w, _ = make_synthetic_map(**SYNTH)
+    # mappers built on the start state: after the run their tables are
+    # stale until refresh_tables
+    mappers = {pid: PoolMapper(m, pid, device=dev) for pid in m.pools}
+    # K2 against its plain walk on the shadow trees (not counted)
+    launches = crush_rule_batched.launches
+    for pid, pm in mappers.items():
+        weight = pm.runtime_args()[0]
+        got = crush_rule_batched(pm.arrays, pm.prog, weight, pm.pps_i32)
+        want = map_batch_plain(pm.arrays, pm.prog, weight, pm.pps_i32)
+        if max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1])):
+            raise AssertionError(f"K2 differs from plain on 6a pool {pid}")
+        log(f"k2 check 6a pool {pid} (rule {m.pools[pid].crush_rule}, "
+            f"{m.pools[pid].pg_num} PGs, {len(m.crush.buckets)} buckets "
+            f"with the shadow trees): equal")
+    crush_rule_batched.launches = launches
+    with SplitTimer(dev) as timer:
+        for pm in mappers.values():
+            pm.map_all()
+        timer.zero()
+        t0 = time.perf_counter()
+        rec = run_offline(m, w, device=dev, **OFFLINE)
+        wall = time.perf_counter() - t0
+        split = timer.split(wall)
+        cpu_run = pool.submit(_offline_cpu, SYNTH, OFFLINE)
+        checked = check_changed(pool, m, mappers,
+                                changed_pgs({}, m.pg_upmap_items),
+                                "balancer 6a")
+        calls = timer.calls
+    traj = rec["stddev_trajectory"]
+    if rec["upmaps"] and not all(b < a for a, b in zip(traj, traj[1:])):
+        raise AssertionError(f"6a stddev trajectory not falling: {traj}")
+    out = {**rec, "split": split,
+           "round_s": wall / max(1, rec["rounds"]),
+           "changed_pgs_checked": checked}
+    log(f"balancer 6a: {rec['rounds']} rounds, {rec['upmaps']} upmaps, "
+        f"stddev {rec['initial_stddev']} -> {rec['final_stddev']}, "
+        f"converged={rec['converged']}; wall {wall:.3f} s, "
+        f"{wall / max(1, rec['rounds']):.3f} s a round "
+        f"(map_all {split['map_all_device_ms']:.2f} ms device / "
+        f"{split['map_all_host_s']:.3f} s host over "
+        f"{split['map_all_calls']} calls, tally {split['tally_s']:.3f} s, "
+        f"search {split['search_s']:.3f} s, other host "
+        f"{split['other_host_s']:.3f} s)")
+
+    def against_cpu():
+        cpu_rec, cpu_items, cpu_s = cpu_run.result()
+        card = {k: v for k, v in rec.items() if k not in TIMING}
+        plain = {k: v for k, v in cpu_rec.items() if k not in TIMING}
+        if card != plain:
+            raise AssertionError(f"6a record on the card {card} != on the "
+                                 f"CPU {plain}")
+        if sorted(m.pg_upmap_items.items()) != cpu_items:
+            raise AssertionError("6a final pg_upmap_items differ between "
+                                 "the card and the CPU")
+        out.update(cpu_run_s=cpu_s, cpu_sweep_s=cpu_rec["sweep_s"])
+        log(f"balancer 6a: record and pg_upmap_items equal to the CPU "
+            f"run's ({cpu_s:.1f} s, sweeps {cpu_rec['sweep_s']} s)")
+
+    return out, calls, against_cpu
+
+
+def phase_balancer_big(dev, pool, m, mappers):
+    """6b: ``evaluate`` of phase 5's cluster through its cached mappers,
+    an upmap edit, ``evaluate`` again, then one ``calc_pg_upmaps`` with
+    osdmaptool's defaults on pool 1; changed PGs held to the scalar
+    pipeline, pool 1's stddev must fall if anything changed."""
+    from ceph_tpu_torch.crush.wrapper import CrushWrapper
+    from ceph_tpu_torch.mgr.balancer_module import evaluate
+    from ceph_tpu_torch.osdmap.balancer import (build_pgs_by_osd,
+                                                calc_pg_upmaps)
+
+    w = CrushWrapper(m.crush)
+    start = dict(m.pg_upmap_items)
+    rng = np.random.default_rng(14)
+    with SplitTimer(dev) as timer:
+        t0 = time.perf_counter()
+        ev1 = evaluate(m, w, mappers=mappers, device=dev)
+        eval1_s = time.perf_counter() - t0
+        # an upmap edit on 0.1% of pool 1's PGs: each moves its first OSD
+        # to a random one
+        pool1 = m.pools[1]
+        for ps in rng.choice(pool1.pg_num, pool1.pg_num // 1000,
+                             replace=False):
+            pg = (1, int(ps))
+            if pg in m.pg_upmap or pg in m.pg_upmap_items:
+                continue
+            up = m.pg_to_up_acting_osds(1, int(ps))[0]
+            if up:
+                m.pg_upmap_items[pg] = [(up[0], int(rng.integers(
+                    m.max_osd)))]
+        t0 = time.perf_counter()
+        ev2 = evaluate(m, w, mappers=mappers, device=dev)
+        eval2_s = time.perf_counter() - t0
+        before = dict(m.pg_upmap_items)
+        t0 = time.perf_counter()
+        changed = timer.calc(calc_pg_upmaps, m, wrapper=w, mappers=mappers,
+                             device=dev, **UPMAP_BIG)
+        calc_s = time.perf_counter() - t0
+        split = timer.split(eval1_s + eval2_s + calc_s)
+        # one of calc_pg_upmaps' per-try copies of the tally, alone
+        tally = build_pgs_by_osd(m, {1}, True, mappers, device=dev)
+        t0 = time.perf_counter()
+        {o: set(p) for o, p in tally.items()}
+        copy_s = time.perf_counter() - t0
+        ev3 = evaluate(m, w, only_pools={1}, mappers=mappers, device=dev)
+        checked = check_changed(pool, m, mappers,
+                                changed_pgs(start, m.pg_upmap_items),
+                                "balancer 6b")
+        calls = timer.calls
+    sd_before, sd_after = ev2["pools"][1]["stddev"], ev3["stddev"]
+    if changed and not sd_after < sd_before:
+        raise AssertionError(f"6b: {changed} changes, pool 1 stddev "
+                             f"{sd_before} -> {sd_after}")
+    if len(changed_pgs(before, m.pg_upmap_items)) > changed:
+        raise AssertionError("6b: more PGs changed than calc_pg_upmaps "
+                             "reported")
+    out = {"pgs": ev1["mapped_pgs"], "stddev_eval1": ev1["stddev"],
+           "stddev_eval2": ev2["stddev"], "eval1_s": eval1_s,
+           "eval2_s": eval2_s, "calc_s": calc_s, "changes": changed,
+           "pool1_stddev_before": sd_before, "pool1_stddev_after": sd_after,
+           "split": split, "temp_copy_s": copy_s,
+           "changed_pgs_checked": checked,
+           "params": {k: sorted(v) if isinstance(v, set) else v
+                      for k, v in UPMAP_BIG.items()}}
+    log(f"balancer 6b: evaluate {ev1['mapped_pgs']} PGs {eval1_s:.3f} s, "
+        f"after an edit {eval2_s:.3f} s; calc_pg_upmaps {calc_s:.3f} s, "
+        f"{changed} changes, pool 1 stddev {sd_before:.4f} -> "
+        f"{sd_after:.4f} (map_all {split['map_all_device_ms']:.2f} ms "
+        f"device / {split['map_all_host_s']:.3f} s host, tally "
+        f"{split['tally_s']:.3f} s, search {split['search_s']:.3f} s, "
+        f"other host {split['other_host_s']:.3f} s; one copy of pool 1's "
+        f"tally {copy_s:.3f} s)")
+    return out, calls
 
 
 def main():
@@ -1034,13 +1337,26 @@ def main():
         k2["launches"] = mapper.crush_rule_batched.launches
         gf2_kernels.gf2_matmul_w8.launches = 0
         mapper.crush_rule_batched.launches = 0
-        pipe, pipe_launches = phase_pipeline(dev, pool)
+        pipe, pipe_launches, big_map, big_mappers = phase_pipeline(dev,
+                                                                   pool)
+        if pipe_launches < 1:
+            raise AssertionError("crush_rule_batched was not launched on "
+                                 "the pipeline path")
+        k2["launches"] += pipe_launches
+
+        # the balancer: one K2 launch a map_all call, asserted
+        mapper.crush_rule_batched.launches = 0
+        offline, calls_a, against_cpu = phase_balancer_offline(dev, pool)
+        against_cpu()  # 6b's host times are taken without the CPU run
+        big, calls_b = phase_balancer_big(dev, pool, big_map, big_mappers)
+        bal_launches = mapper.crush_rule_batched.launches
+        if bal_launches != calls_a + calls_b or bal_launches < 1:
+            raise AssertionError(f"{calls_a + calls_b} map_all calls of the "
+                                 f"balancer launched K2 {bal_launches} "
+                                 f"times")
+        k2["launches"] += bal_launches
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
-    if pipe_launches < 1:
-        raise AssertionError("crush_rule_batched was not launched on the "
-                             "pipeline path")
-    k2["launches"] += pipe_launches
     for k in (k1, k2):
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was not launched on the "
@@ -1057,6 +1373,9 @@ def main():
                                        "variants": k2["variants"]}))
     log("flagship: " + json.dumps({"card": card, **flag}))
     log("pipeline: " + json.dumps({"card": card, "pools": pipe}))
+    log("balancer: " + json.dumps({"card": card, "offline": offline,
+                                    "big10k": big,
+                                    "k2_launches": bal_launches}))
     log(f"gpu: {card}")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,6 +25,8 @@ from ceph_tpu_torch.ec import gf
 from ceph_tpu_torch.ec.engine import BitCode
 from ceph_tpu_torch.ec.rs import RSCode
 from ceph_tpu_torch.flagship import flagship
+from ceph_tpu_torch.mgr.balancer_module import evaluate, run_offline
+from ceph_tpu_torch.osdmap.balancer import build_pgs_by_osd, calc_pg_upmaps
 from ceph_tpu_torch.osdmap.osdmap import OSDMap, PgPool
 from ceph_tpu_torch.osdmap.pipeline import PoolMapper
 
@@ -100,8 +102,10 @@ def test_port_never_imports_jax_or_the_jax_package():
                          timeout=300)
     assert out.returncode == 0, out.stderr
     for name in ("crush.mapper", "crush.mapper_ref", "crush.builder",
-                 "osdmap.osdmap", "osdmap.pipeline", "convert",
-                 "flagship"):
+                 "crush.map", "crush.wrapper", "common.encoding",
+                 "osdmap.osdmap", "osdmap.pipeline", "osdmap.balancer",
+                 "mgr.synthetic", "mgr.balancer_module",
+                 "tools.osdmaptool", "convert", "flagship"):
         assert "ceph_tpu_torch." + name in modules
 
 
@@ -122,6 +126,10 @@ def test_entry_points_default_to_the_card():
         lambda: build_rule_fn(cmap, 0, 3),
         lambda: flagship(),
         lambda: PoolMapper(osdmap, 1),
+        lambda: build_pgs_by_osd(osdmap),
+        lambda: calc_pg_upmaps(osdmap),
+        lambda: evaluate(osdmap),
+        lambda: run_offline(osdmap),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

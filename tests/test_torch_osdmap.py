@@ -8,8 +8,8 @@ TestOSDMap.cc): down, out and nonexistent OSDs, pg_upmap and
 pg_upmap_items with their rejection rules, pg_temp and primary_temp,
 primary affinity, replicated (shifting) and erasure (positional) pools,
 pg_num 128 with a pgp_num that is not a power of two.  State is built
-with the JAX package and carried into the port by
-``convert.osdmap_from_dict``.  All six outputs, every PG, tolerance
+with the JAX package and carried into the port by the port's
+``OSDMap.from_dict``.  All six outputs, every PG, tolerance
 zero.
 
 The JAX ``PoolMapper`` compiles for seconds and compiles out the stages
@@ -38,7 +38,7 @@ from ceph_tpu.osdmap import pipeline_jax
 from ceph_tpu.osdmap.osdmap import (OSDMap, PgPool, POOL_TYPE_ERASURE,
                                     POOL_TYPE_REPLICATED)
 
-from ceph_tpu_torch.convert import osdmap_from_dict
+from ceph_tpu_torch.osdmap.osdmap import OSDMap as PortOSDMap
 from ceph_tpu_torch.osdmap.pipeline import PoolMapper
 
 CPU = "cpu"
@@ -127,7 +127,8 @@ def assert_match(m, pool_id, note, pm=None, want=None, kind="sample",
     every PG)."""
     pool = m.pools[pool_id]
     if pm is None:
-        pm = PoolMapper(osdmap_from_dict(m.to_dict()), pool_id, device=CPU)
+        pm = PoolMapper(PortOSDMap.from_dict(m.to_dict()), pool_id,
+                        device=CPU)
     out = pm.map_all()
     assert all(out[k].dtype == torch.int32 for k in KEYS)
     got = {k: out[k].numpy() for k in KEYS}
@@ -244,7 +245,8 @@ def test_everything_at_once(pool_id):
 @pytest.mark.parametrize("pool_id", POOLS)
 def test_refresh_tables(pool_id):
     m = make_map()
-    pm = PoolMapper(osdmap_from_dict(m.to_dict()), pool_id, device=CPU)
+    pm = PoolMapper(PortOSDMap.from_dict(m.to_dict()), pool_id,
+                    device=CPU)
     up0 = assert_match(m, pool_id, "refresh-base", pm=pm)["up"]
 
     def edit(edits):
@@ -267,7 +269,7 @@ def test_oversized_upmap_rejected(pool_id):
     with pytest.raises(ValueError):
         pipeline_jax.PoolMapper(m, pool_id)
     with pytest.raises(ValueError):
-        PoolMapper(osdmap_from_dict(m.to_dict()), pool_id, device=CPU)
+        PoolMapper(PortOSDMap.from_dict(m.to_dict()), pool_id, device=CPU)
 
 
 @pytest.mark.parametrize("pool_id", POOLS)
