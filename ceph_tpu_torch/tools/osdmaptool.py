@@ -10,14 +10,15 @@ src/tools/osdmaptool.cc:103-846), with its verbs, files and output:
                                    run the balancer, write the commands
   --upmap-cleanup                  drop invalid pg_upmap_items
   --export-crush F                 write the crush map (CrushWrapper dict)
+  --import-crush F                 replace the crush map (JSON or text)
   --mark-up-in                     all osds up+in
 
 Map files are ``OSDMap.to_dict()`` JSON, the same files ``ceph_tpu``'s
-tool reads and writes.  The sweeps run on ``--device`` (default
-``cuda``; without a card the tool fails unless ``--device cpu`` is
-given): one ``PoolMapper.map_all`` per pool, or with ``--scalar`` the
-scalar pipeline.  ``--import-crush`` needs crushtool's map compiler,
-which the port does not have yet: it exits with an error.
+tool reads and writes.  The sweeps (``--test-map-pgs``,
+``--test-map-pgs-dump``, ``--upmap``) run one ``PoolMapper.map_all``
+per pool on ``--device`` (default ``cuda``; without a card the tool
+fails unless ``--device cpu`` is given).  ``--scalar`` asks for the
+scalar pipeline on the CPU instead, and never for a card.
 
 Usage: python -m ceph_tpu_torch.tools.osdmaptool <mapfile> ...
 """
@@ -31,9 +32,10 @@ import sys
 import numpy as np
 
 from ..crush.wrapper import CrushWrapper
-from ..device import resolve_device
 from ..osdmap.balancer import build_pgs_by_osd, calc_pg_upmaps
 from ..osdmap.osdmap import OSDMap, PgPool
+from ..osdmap.pipeline import PoolMapper
+from .crushtool import load_map
 
 
 def create_simple(num_osd: int, pg_bits: int = 6) -> OSDMap:
@@ -78,6 +80,33 @@ def test_map_pgs(m: OSDMap, pool: int | None = None,
     out.write(f" min osd.{int(counts.argmin())} {int(counts.min())}\n")
     out.write(f" max osd.{int(counts.argmax())} {int(counts.max())}\n")
     out.write(f"size {total}\n")
+
+
+def test_map_pgs_dump(m: OSDMap, pool: int | None = None,
+                      use_batched: bool = True, out=None,
+                      device="cuda") -> None:
+    """--test-map-pgs-dump (osdmaptool.cc:42): every PG's up set, up
+    primary, acting set and acting primary; one ``map_all`` per pool
+    on ``device``, or with ``use_batched=False`` the scalar
+    ``pg_to_up_acting_osds`` on the host."""
+    out = sys.stdout if out is None else out
+    for pool_id, p in sorted(m.pools.items()):
+        if pool is not None and pool_id != pool:
+            continue
+        if use_batched:
+            got = {k: v.cpu().tolist() for k, v in
+                   PoolMapper(m, pool_id, device=device).map_all().items()}
+            rows = zip(got["up"], got["up_len"], got["up_primary"],
+                       got["acting"], got["acting_len"],
+                       got["acting_primary"])
+            rows = ((up[:ulen], up_p, act[:alen], act_p)
+                    for up, ulen, up_p, act, alen, act_p in rows)
+        else:
+            rows = (m.pg_to_up_acting_osds(pool_id, ps)
+                    for ps in range(p.pg_num))
+        for ps, (up, up_p, acting, act_p) in enumerate(rows):
+            out.write(f"{pool_id}.{ps:x}\t{list(up)}\t{up_p}\t"
+                      f"{list(acting)}\t{act_p}\n")
 
 
 def upmap_cleanup(m: OSDMap) -> int:
@@ -126,13 +155,6 @@ def main(argv=None) -> int:
     p.add_argument("--import-crush")
     p.add_argument("--mark-up-in", action="store_true")
     args = p.parse_args(argv)
-    dev = resolve_device(args.device)
-
-    if args.import_crush:
-        print("osdmaptool: --import-crush needs crushtool's map "
-              "compiler, which ceph_tpu_torch does not have yet",
-              file=sys.stderr)
-        return 1
 
     if args.createsimple:
         m = create_simple(args.createsimple, args.pg_bits)
@@ -150,6 +172,10 @@ def main(argv=None) -> int:
             m.add_osd(d)
         dirty = True
 
+    if args.import_crush:
+        m.crush = load_map(args.import_crush).crush
+        dirty = True
+
     if args.export_crush:
         with open(args.export_crush, "w") as f:
             json.dump(CrushWrapper(m.crush).to_dict(), f)
@@ -165,7 +191,7 @@ def main(argv=None) -> int:
         changed = calc_pg_upmaps(
             m, max_deviation=args.upmap_deviation,
             max_iterations=args.upmap_max, only_pools=only,
-            use_batched=not args.scalar, device=dev)
+            use_batched=not args.scalar, device=args.device)
         with open(args.upmap, "w") as f:
             for pgid in sorted(set(before) | set(m.pg_upmap_items)):
                 now = m.pg_upmap_items.get(pgid)
@@ -181,18 +207,12 @@ def main(argv=None) -> int:
         dirty = dirty or changed > 0
 
     if args.test_map_pgs_dump:
-        for pool_id, pool in sorted(m.pools.items()):
-            if args.pool is not None and pool_id != args.pool:
-                continue
-            for ps in range(pool.pg_num):
-                up, up_p, acting, act_p = m.pg_to_up_acting_osds(
-                    pool_id, ps)
-                print(f"{pool_id}.{ps:x}\t{list(up)}\t{up_p}\t"
-                      f"{list(acting)}\t{act_p}")
+        test_map_pgs_dump(m, args.pool, use_batched=not args.scalar,
+                          device=args.device)
 
     if args.test_map_pgs:
         test_map_pgs(m, args.pool, use_batched=not args.scalar,
-                     device=dev)
+                     device=args.device)
 
     # as the reference: the map file is rewritten only with --clobber
     # after an upmap, cleanup or mark-up-in

@@ -704,6 +704,40 @@ def phase_k2(dev, pool):
                          n=n)
         log(f"k2 golden {name}: {len(gcases)} cases equal")
 
+    # rule shapes no golden map has, from the text map: the set steps of
+    # ops 8-13, several takes and emits, numrep beyond the hierarchy,
+    # takes of a device, an empty bucket and a missing one; under each
+    # tunable profile of rule_shapes; K2 against the plain walk on 4,096
+    # xs (2^31 and 2^32 - 1 among them) and against mapper_ref on the
+    # first 256
+    from ceph_tpu_torch.crush.mapper_ref import crush_do_rule
+    from ceph_tpu_torch.tools import rule_shapes
+
+    sxs = np.concatenate([np.asarray([0, 2 ** 31 - 1, 2 ** 31, 2 ** 32 - 1],
+                                     np.uint32),
+                          rng.integers(0, 2 ** 32, 4092, dtype=np.uint64)
+                          .astype(np.uint32)])
+    n_shapes = 0
+    for tname in rule_shapes.TUNABLES:
+        smap = rule_shapes.rule_shapes_map(tname)
+        sw_np = rule_shapes.weights(smap.max_devices)
+        sm = BatchedMapper(smap, device=dev)
+        sw = as_i32(sw_np, dev)
+        for ruleno, numrep in rule_shapes.CASES:
+            label = f"rule shapes ({tname} tunables) rule {ruleno} numrep " \
+                    f"{numrep}"
+            res, lens = check(sm.arrays, sm.program(ruleno, numrep), sw,
+                              as_i32(sxs, dev), f"{label}, 4096 xs")
+            res, lens = res[:256].cpu().numpy(), lens[:256].cpu().numpy()
+            for i, x in enumerate(sxs[:256].tolist()):
+                want = crush_do_rule(smap, ruleno, x, numrep, sw_np.tolist())
+                if res[i, :lens[i]].tolist() != want:
+                    raise AssertionError(f"K2 differs from mapper_ref on "
+                                         f"{label} at x={x}")
+            n_shapes += 1
+    log(f"k2 rule shapes: {n_shapes} cases equal to the plain walk and "
+        f"mapper_ref")
+
     # the full-size variants: K2 against the plain walk on 65,536 PGs and
     # its first ORACLE_XS outputs against mapper_ref; timed once every
     # oracle is done, so that no worker competes with the host's launches
@@ -1298,7 +1332,250 @@ def phase_balancer_big(dev, pool, m, mappers):
     return out, calls
 
 
+# -- phase 7 ----------------------------------------------------------
+
+# BASELINE.json config 5's scale: 1 M PGs through rule 0; rule 1 (EC 8+3,
+# indep numrep 11) over a quarter of that
+SWEEP_REP = 1 << 20
+SWEEP_EC = 1 << 18
+SWEEP_ROWS = 65536    # the chunk of rows held to the plain walk on the card
+C_MAPPINGS_PER_S = 85099.6   # BASELINE_MEASURED.json, one thread of C
+
+
+def run_tool(tool, args):
+    """(exit code, stdout) of ``tool.main(args)``."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = tool.main([str(a) for a in args])
+    return rc, buf.getvalue()
+
+
+def same_report(a, b, label):
+    """Two RuleReports equal field for field (bad rows as arrays)."""
+    if (a.total, a.size_counts) != (b.total, b.size_counts) or \
+            not np.array_equal(a.device_stored, b.device_stored) or \
+            not np.array_equal(a.device_expected, b.device_expected):
+        raise AssertionError(f"crushtool {label}: reports differ")
+    ab, bb = a.bad_rows, b.bad_rows
+    if (ab is None) != (bb is None) or ab is not None and not all(
+            np.array_equal(u, v) for u, v in zip(ab, bb)):
+        raise AssertionError(f"crushtool {label}: bad rows differ")
+
+
+def host_median(fn, runs=5):
+    """Median host seconds of ``fn()`` (ending in a synchronise) over
+    ``runs`` calls after one warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    took = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        took.append(time.perf_counter() - t0)
+    return float(np.median(took))
+
+
+def phase_crushtool(dev, workdir, card, n_rep=SWEEP_REP, n_ec=SWEEP_EC,
+                    n_rows=SWEEP_ROWS):
+    """crushtool and CrushTester on ``map_big10k`` and on the sample map
+    made with crushtool's own verbs; returns (record, card sweeps made:
+    one K2 launch each)."""
+    import torch
+
+    from ceph_tpu_torch import build
+    from ceph_tpu_torch.crush import native
+    from ceph_tpu_torch.crush.hash import hash32_2_int
+    from ceph_tpu_torch.crush.map_arrays import as_i32
+    from ceph_tpu_torch.crush.mapper import (N_ALGS, BatchedMapper,
+                                             crush_rule_batched,
+                                             map_batch_plain)
+    from ceph_tpu_torch.crush.wrapper import CrushWrapper
+    from ceph_tpu_torch.parallel.placement import utilization
+    from ceph_tpu_torch.tools import crushtool
+    from ceph_tpu_torch.tools.tester import CrushTester
+
+    t_phase = time.perf_counter()
+    native_build_s = build.build_host()
+    threads = native.threads()
+    sweeps = 0
+    cmap, _ = load_map("map_big10k")
+    w = CrushWrapper(cmap)
+    big = os.path.join(workdir, "map_big10k.json")
+    with open(big, "w") as f:
+        json.dump(w.to_dict(), f)
+    tester = CrushTester(crushtool.load_map(big))
+    out = {"card": card, "native_threads": threads,
+           "native_build_s": native_build_s}
+
+    for ruleno, numrep, n in ((0, 3, n_rep), (1, 11, n_ec)):
+        tag = f"rule {ruleno} numrep {numrep} x 0..{n - 1}"
+        # test_rule's two halves, so that every row can be checked
+        xs, rows, lens = tester.sweep(ruleno, numrep, 0, n - 1, device=dev)
+        sweeps += 1
+        rep = tester.report(ruleno, numrep, 0, n - 1, xs, rows, lens)
+        nxs, nrows, nlens = tester.sweep(ruleno, numrep, 0, n - 1,
+                                         native=True)
+        nat = tester.report(ruleno, numrep, 0, n - 1, nxs, nrows, nlens)
+        same_report(rep, nat, f"{tag} card/native")
+        if not (torch.equal(rows.cpu(), nrows)
+                and torch.equal(lens.cpu(), nlens)):
+            raise AssertionError(f"crushtool {tag}: the card's rows differ "
+                                 f"from the native engine's")
+        # every row against the plain walk on the card, in chunks
+        bm = tester.mapper(dev)
+        prog = bm.program(ruleno, numrep)
+        weight = as_i32(np.asarray(tester.weights, np.uint32), dev)
+        xs32 = as_i32(xs, dev)
+        for lo in range(0, n, n_rows):
+            prows, plens = map_batch_plain(bm.arrays, prog, weight,
+                                           xs32[lo:lo + n_rows])
+            if max_abs_err(rows[lo:lo + n_rows], prows) or \
+                    max_abs_err(lens[lo:lo + n_rows], plens):
+                raise AssertionError(f"crushtool {tag}: the card's rows "
+                                     f"from x={lo} differ from the plain "
+                                     f"walk's")
+        log(f"crushtool {tag}: report equal to the native engine's "
+            f"(sizes {rep.size_counts}, {len(rep.bad)} bad); all {n} rows "
+            f"equal to native's and to the plain walk's on the card")
+
+        # timings, all after a warm-up: test_rule, sweep and report on
+        # the host clock (each ending in a sync); K2, the xs and the
+        # stats pass's device ops alone by CUDA events; the native
+        # engine on the host clock
+        rec = {"pgs": n}
+        rec["test_rule_s"] = host_median(
+            lambda: tester.test_rule(ruleno, numrep, 0, n - 1, device=dev))
+        rec["sweep_host_s"] = host_median(lambda: tester.sweep(
+            ruleno, numrep, 0, n - 1, device=dev))
+        sweeps += 12
+        rec["report_host_s"] = host_median(lambda: tester.report(
+            ruleno, numrep, 0, n - 1, xs, rows, lens))
+        # bare launches, to time K2 and find its bound: not the
+        # crushtool path's, so the count is restored after them
+        launches = crush_rule_batched.launches
+        rec["k2_ms"] = cuda_ms(lambda i: crush_rule_batched(
+            bm.arrays, prog, weight, xs32), 5)
+        draws = torch.zeros((n, N_ALGS), dtype=torch.int32, device=dev)
+        crush_rule_batched(bm.arrays, prog, weight, xs32, draws=draws)
+        crush_rule_batched.launches = launches
+        rec["k2_bound_ms"], rec["k2_bound_by"], _ = k2_bound_ms(
+            bm.arrays, prog, n, weight, draws)
+        rec["xs_ms"] = cuda_ms(lambda i: as_i32(torch.arange(
+            0, n, dtype=torch.int64, device=dev) & 0xFFFFFFFF, dev), 5)
+        n_dev = tester.w.crush.max_devices
+        rec["stats_device_ms"] = cuda_ms(lambda i: (
+            utilization(rows, lens, n_dev),
+            torch.bincount(lens.to(torch.int64)),
+            (lens != numrep).nonzero()), 5)
+        # what the sweep and the report, timed apart, leave of a call:
+        # negative where the host's work overlaps the card's in a call
+        rec["rest_s"] = rec["test_rule_s"] - rec["sweep_host_s"] \
+            - rec["report_host_s"]
+        rec["mapper_setup_s"] = host_median(
+            lambda: BatchedMapper(cmap, device=dev))
+        rec["native_s"] = host_median(lambda: tester.test_rule(
+            ruleno, numrep, 0, n - 1, native=True), runs=3)
+        rec["mappings_per_s"] = n / rec["test_rule_s"]
+        rec["native_mappings_per_s"] = n / rec["native_s"]
+        rec["vs_c_thread"] = rec["mappings_per_s"] / C_MAPPINGS_PER_S
+        rec["vs_native"] = rec["native_s"] / rec["test_rule_s"]
+        out[f"rule{ruleno}"] = rec
+        log(f"crushtool {tag}: test_rule {rec['test_rule_s'] * 1e3:.3f} ms "
+            f"({rec['mappings_per_s']:.4g} mappings/s, "
+            f"{rec['vs_c_thread']:.1f}x a C thread) = sweep "
+            f"{rec['sweep_host_s'] * 1e3:.3f} ms + report "
+            f"{rec['report_host_s'] * 1e3:.3f} ms + rest "
+            f"{rec['rest_s'] * 1e3:.3f} ms; device: xs "
+            f"{rec['xs_ms']:.4f} ms, K2 {rec['k2_ms']:.4f} ms (bound "
+            f"{rec['k2_bound_ms']:.4f}, {rec['k2_bound_by']}), stats ops "
+            f"{rec['stats_device_ms']:.4f} ms; map lowering (once a "
+            f"tester) {rec['mapper_setup_s'] * 1e3:.2f} ms; native "
+            f"{rec['native_s'] * 1e3:.1f} ms on {threads} threads "
+            f"({rec['native_mappings_per_s']:.4g} mappings/s): the card "
+            f"{rec['vs_native']:.1f}x; on {card}")
+
+    # crushtool's text: card and native byte-equal
+    for ruleno, numrep, n in ((0, 3, n_rep), (1, 11, n_ec)):
+        args = ["-i", big, "--test", "--rule", ruleno, "--num-rep", numrep,
+                "--max-x", n - 1, "--show-statistics", "--show-utilization",
+                "--show-bad-mappings"]
+        card_out = run_tool(crushtool, args + ["--device", dev.type])
+        sweeps += 1
+        if card_out[0] != 0 or card_out != run_tool(crushtool,
+                                                    args + ["--native"]):
+            raise AssertionError(f"crushtool --test rule {ruleno}: the "
+                                 f"card's text differs from native's")
+        log(f"crushtool --test rule {ruleno} numrep {numrep} over {n} x: "
+            f"{len(card_out[1].splitlines())} lines, byte-equal to "
+            f"--native")
+
+    # --pool: the xs hashed on the card
+    xs, _, _ = tester.sweep(0, 3, 0, 4095, pool=1, device=dev)
+    sweeps += 1
+    if xs.cpu().tolist() != [hash32_2_int(x, 1) for x in range(4096)]:
+        raise AssertionError("crushtool --pool 1: the card's xs differ "
+                             "from hash32_2_int")
+    same_report(tester.test_rule(0, 3, 0, 4095, pool=1, device=dev),
+                tester.test_rule(0, 3, 0, 4095, pool=1, native=True),
+                "--pool 1 card/native")
+    sweeps += 1
+    log("crushtool --pool 1: 4096 hashed xs equal to hash32_2_int, report "
+        "equal to native")
+
+    # --compare against a copy with one host at half weight
+    w2 = crushtool.load_map(big)
+    host = w2.get_bucket(min(b.id for b in w2.crush.buckets.values()
+                             if b.type == 1))
+    for item, wt in list(zip(host.items, host.item_weights)):
+        w2.adjust_item_weight(item, wt // 2)
+    other = os.path.join(workdir, "map_big10k_half_host.json")
+    crushtool.save_map(w2, other)
+    args = ["-i", big, "--compare", other, "--rule", 0, "--num-rep", 3,
+            "--max-x", n_rep - 1]
+    card_cmp = run_tool(crushtool, args + ["--device", dev.type])
+    sweeps += 2
+    if card_cmp[0] != 0 or card_cmp != run_tool(crushtool,
+                                                args + ["--native"]):
+        raise AssertionError("crushtool --compare: card and native differ")
+    out["compare"] = card_cmp[1].strip()
+    log(f"crushtool --compare, host {host.id} at half weight: "
+        f"{out['compare']} (equal to --native)")
+
+    # BASELINE.json config 1's sample map, made with crushtool's verbs
+    s1, s2 = (os.path.join(workdir, f"sample{i}.json") for i in (1, 2))
+    stxt = os.path.join(workdir, "sample.txt")
+    for args in (["--build", "--num-osds", 12, "-o", s1, "host", "straw2",
+                  4, "root", "straw2", 0],
+                 ["-i", s1, "--create-replicated-rule", "replicated_rule",
+                  "root", "host"],
+                 ["-d", s1, "-o", stxt], ["-c", stxt, "-o", s2]):
+        if run_tool(crushtool, args)[0] != 0:
+            raise AssertionError(f"crushtool {args[:2]} failed")
+    args = ["-i", s2, "--test", "--num-rep", 3, "--max-x", 1023,
+            "--show-statistics", "--show-utilization"]
+    card_out = run_tool(crushtool, args + ["--device", dev.type])
+    sweeps += 1
+    if card_out != run_tool(crushtool, args + ["--native"]) or \
+            "result size == 3:\t1024/1024" not in card_out[1]:
+        raise AssertionError("crushtool sample map: card and native text "
+                             "differ, or a mapping fell short")
+    log("crushtool sample map (--build 12 OSDs, 3 straw2 hosts, "
+        "--create-replicated-rule, -d, -c): --test of 1024 x equal to "
+        "--native, every mapping of size 3")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"crushtool phase: {out['phase_s']:.1f} s")
+    return out, sweeps
+
+
 def main():
+    import tempfile
+
     import torch
 
     if not torch.cuda.is_available():
@@ -1355,6 +1632,17 @@ def main():
                                  f"balancer launched K2 {bal_launches} "
                                  f"times")
         k2["launches"] += bal_launches
+
+        # crushtool: one K2 launch a sweep on the card, asserted
+        mapper.crush_rule_batched.launches = 0
+        with tempfile.TemporaryDirectory() as workdir:
+            tool, sweeps = phase_crushtool(dev, workdir, card)
+        tool_launches = mapper.crush_rule_batched.launches
+        if tool_launches != sweeps or tool_launches < 1:
+            raise AssertionError(f"{sweeps} card sweeps of crushtool "
+                                 f"launched K2 {tool_launches} times")
+        tool["k2_launches"] = tool_launches
+        k2["launches"] += tool_launches
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
     for k in (k1, k2):
@@ -1376,6 +1664,7 @@ def main():
     log("balancer: " + json.dumps({"card": card, "offline": offline,
                                     "big10k": big,
                                     "k2_launches": bal_launches}))
+    log("crushtool: " + json.dumps(tool))
     log(f"gpu: {card}")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -30,6 +30,7 @@ from ceph_tpu_torch.crush.map import CrushMap, Tunables
 from ceph_tpu_torch.crush.map_arrays import encode_map, to_device
 from ceph_tpu_torch.crush.mapper import (MAX_STEPS, _rule_steps,
                                          compile_rule, map_batch_plain)
+from ceph_tpu_torch.tools import rule_shapes
 
 SRC = (pathlib.Path(__file__).resolve().parent.parent
        / "ceph_tpu_torch" / "csrc" / "crush_rule.cu")
@@ -219,6 +220,12 @@ def mixed_map(tunables=None):
     return cmap, dev
 
 
+TUNABLES = {"mixed": None, "mixed_legacy": Tunables.legacy(),
+            "mixed_local": Tunables(2, 0, 19, 0, 0, 0),
+            "shapes": "optimal", "shapes_legacy": "legacy",
+            "shapes_local": "local"}
+
+
 def load(name):
     with open(GOLDEN_DIR / f"{name}.json") as f:
         return json.load(f)
@@ -229,17 +236,22 @@ CASES = [("map_big10k", 0, 3), ("map_big10k", 1, 11), ("map_weird", 1, 4),
          ("map_uniform", 1, 4), ("map_tree3_chooseargs", 1, 6),
          ("map_tree3_chooseargs", 2, 4), ("map_tree3_legacy", 0, 3),
          ("map_tree3_legacy", 1, 6), ("mixed", 0, 3), ("mixed", 1, 5),
-         ("mixed_legacy", 0, 3), ("mixed_local", 0, 3)]
+         ("mixed_legacy", 0, 3), ("mixed_local", 0, 3)] + [
+    (name, ruleno, numrep)
+    for name in ("shapes", "shapes_legacy", "shapes_local")
+    for ruleno, numrep in rule_shapes.CASES]
 
 
 @pytest.mark.parametrize("group", [1, 4])
 @pytest.mark.parametrize("name,ruleno,numrep", CASES)
 def test_kernel_walk_matches_plain(model, group, name, ruleno, numrep):
-    if name.startswith("mixed"):
-        tunables = {"mixed": None, "mixed_legacy": Tunables.legacy(),
-                    "mixed_local": Tunables(2, 0, 19, 0, 0, 0)}[name]
-        cmap, ndev = mixed_map(tunables)
-        weight = np.full(ndev, 0x10000, np.uint32)
+    if name in TUNABLES:
+        if name.startswith("mixed"):
+            cmap, ndev = mixed_map(TUNABLES[name])
+            weight = np.full(ndev, 0x10000, np.uint32)
+        else:
+            cmap = rule_shapes.rule_shapes_map(TUNABLES[name])
+            weight = rule_shapes.weights(cmap.max_devices)
         cargs = None
     else:
         d = load(name)

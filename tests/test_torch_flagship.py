@@ -4,6 +4,7 @@ same inputs, the port's isolation from JAX, and its device default.
 Outputs are OSD indices and parity bytes, so the tolerance is zero.
 """
 
+import json
 import os
 import pathlib
 import subprocess
@@ -21,6 +22,7 @@ from ceph_tpu_torch.convert import bitcode_from_numpy, map_arrays_from_numpy
 from ceph_tpu_torch.crush.builder import sample_cluster_map
 from ceph_tpu_torch.crush.map_arrays import as_i32
 from ceph_tpu_torch.crush.mapper import BatchedMapper, build_rule_fn
+from ceph_tpu_torch.crush.wrapper import CrushWrapper
 from ceph_tpu_torch.ec import gf
 from ceph_tpu_torch.ec.engine import BitCode
 from ceph_tpu_torch.ec.rs import RSCode
@@ -29,6 +31,8 @@ from ceph_tpu_torch.mgr.balancer_module import evaluate, run_offline
 from ceph_tpu_torch.osdmap.balancer import build_pgs_by_osd, calc_pg_upmaps
 from ceph_tpu_torch.osdmap.osdmap import OSDMap, PgPool
 from ceph_tpu_torch.osdmap.pipeline import PoolMapper
+from ceph_tpu_torch.tools import crushtool
+from ceph_tpu_torch.tools.tester import CrushTester
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 CPU = "cpu"
@@ -80,7 +84,11 @@ def test_step_batched_stripes_equal_per_stripe_encode():
                               gf.encode_ref(fs.code.G, stripes[b]))
 
 
-def test_port_never_imports_jax_or_the_jax_package():
+def test_port_never_imports_jax_or_the_jax_package(tmp_path):
+    """Every module of the port imports without jax or ceph_tpu, and the
+    native engine's host build (into a fresh directory) runs g++ alone:
+    never ``native/Makefile`` or its generator, which imports
+    ceph_tpu."""
     modules = sorted(
         "ceph_tpu_torch." + str(p.relative_to(REPO / "ceph_tpu_torch"))
         .replace(os.sep, ".")[:-3]
@@ -90,6 +98,24 @@ def test_port_never_imports_jax_or_the_jax_package():
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
         "    importlib.import_module(name)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or\n"
+        "       m.startswith('jax.') or m == 'ceph_tpu' or\n"
+        "       m.startswith('ceph_tpu.')]\n"
+        "assert not bad, bad\n"
+        "import pathlib, subprocess\n"
+        "from ceph_tpu_torch import build\n"
+        f"build.BUILD_DIR = pathlib.Path({str(tmp_path)!r})\n"
+        "ran = []\n"
+        "real = subprocess.run\n"
+        "def spy(cmd, *a, **k):\n"
+        "    ran.append(list(map(str, cmd)))\n"
+        "    return real(cmd, *a, **k)\n"
+        "subprocess.run = spy\n"
+        "from ceph_tpu_torch.crush import native\n"
+        "assert native.threads() >= 1\n"
+        "assert len(ran) == 1 and ran[0][0].endswith('g++'), ran\n"
+        "assert not any('make' in c or 'gen_ln_tables' in c\n"
+        "               for c in ran[0]), ran\n"
         "bad = [m for m in sys.modules if m == 'jax' or\n"
         "       m.startswith('jax.') or m == 'ceph_tpu' or\n"
         "       m.startswith('ceph_tpu.')]\n"
@@ -105,14 +131,19 @@ def test_port_never_imports_jax_or_the_jax_package():
                  "crush.map", "crush.wrapper", "common.encoding",
                  "osdmap.osdmap", "osdmap.pipeline", "osdmap.balancer",
                  "mgr.synthetic", "mgr.balancer_module",
-                 "tools.osdmaptool", "convert", "flagship"):
+                 "tools.osdmaptool", "convert", "flagship",
+                 "crush.location", "crush.native", "parallel.placement",
+                 "tools.compiler", "tools.tester", "tools.crushtool",
+                 "tools.rule_shapes"):
         assert "ceph_tpu_torch." + name in modules
 
 
-def test_entry_points_default_to_the_card():
+def test_entry_points_default_to_the_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable")
     cmap = sample_cluster_map()
+    crush_file = tmp_path / "crush.json"
+    crush_file.write_text(json.dumps(CrushWrapper(cmap).to_dict()))
     bm = gf.expand_bitmatrix(gf.rs_vandermonde_matrix(8, 3)[8:])
     osdmap = OSDMap(cmap)
     for o in range(48):
@@ -130,10 +161,22 @@ def test_entry_points_default_to_the_card():
         lambda: calc_pg_upmaps(osdmap),
         lambda: evaluate(osdmap),
         lambda: run_offline(osdmap),
+        lambda: CrushTester(CrushWrapper(cmap)).test_rule(0, 3),
+        lambda: CrushTester(CrushWrapper(cmap)).compare(
+            CrushTester(CrushWrapper(cmap)), 0, 3),
+        lambda: crushtool.main(["-i", str(crush_file), "--test"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+    # the oracle engines ask for no card
+    tester = CrushTester(CrushWrapper(cmap))
+    assert tester.test_rule(0, 3, 0, 15, scalar=True).total == 16
+    assert tester.test_rule(0, 3, 0, 15, native=True).total == 16
+    assert build_pgs_by_osd(osdmap, use_batched=False)
+    assert calc_pg_upmaps(osdmap, use_batched=False) == 0
+    assert evaluate(osdmap, use_batched=False)["mapped_pgs"] == 16
+    run_offline(osdmap, use_batched=False, max_rounds=1)
     out = PoolMapper(osdmap, 1, device=CPU).map_all()
     assert out["up"].device.type == "cpu" and out["up"].shape == (16, 3)
     from ceph_tpu.crush.map_arrays import encode_map as jencode_map

@@ -14,13 +14,17 @@ port's runs both on the CPU (``--device cpu``).  Each package's
 import io
 import json
 
+import numpy as np
 import pytest
 import torch
 
+from ceph_tpu.osdmap.osdmap import OSD_UP
 from ceph_tpu.osdmap.osdmap import OSDMap as JOSDMap
 from ceph_tpu.tools import osdmaptool as jtool
 
 from ceph_tpu_torch.osdmap.osdmap import OSDMap as POSDMap
+from ceph_tpu_torch.osdmap.pipeline import PoolMapper
+from ceph_tpu_torch.tools import crushtool as pcrush
 from ceph_tpu_torch.tools import osdmaptool as ptool
 
 PORT_MODES = {"batched": ["--device", "cpu"],
@@ -147,11 +151,29 @@ def test_mark_up_in_and_export_crush_equal(simple, tmp_path, capfd):
     assert json.loads(jx.read_text()) == json.loads(px.read_text())
 
 
-def test_import_crush_not_yet(simple, capfd):
-    _, pf, _, _ = simple
-    assert ptool.main([str(pf), "--import-crush", "x.txt",
-                       "--device", "cpu"]) != 0
-    assert "crushtool" in capfd.readouterr().err
+def test_import_crush_not_yet(simple, tmp_path, capfd):
+    """--import-crush, which waited for crushtool's compiler: a text map
+    (and a JSON map) replaces the crush map as in ``ceph_tpu``'s tool,
+    and --clobber writes the same map file."""
+    jf, pf, _, _ = simple
+    cj, text = tmp_path / "c.json", tmp_path / "c.txt"
+    for args in (["--build", "--num-osds", "12", "-o", str(cj), "host",
+                  "straw2", "3", "root", "straw2", "0"],
+                 ["-i", str(cj), "--create-replicated-rule", "rep", "root",
+                  "host"],
+                 ["-d", str(cj), "-o", str(text)]):
+        assert pcrush.main(args) == 0
+    text.write_text(text.read_text().replace("weight 1.00000",
+                                             "weight 2.00000", 3))
+    for src in (text, cj):
+        rj = run(jtool, [jf, "--import-crush", src, "--clobber"], capfd)
+        rp = run(ptool, [pf, "--import-crush", src, "--clobber"], capfd)
+        assert rj == rp == (0, "")
+        assert json.loads(jf.read_text()) == json.loads(pf.read_text())
+        rj = run(jtool, [jf, "--test-map-pgs-dump", "--scalar"], capfd)
+        rp = run(ptool, [pf, "--test-map-pgs-dump", "--device", "cpu"],
+                 capfd)
+        assert rj == rp and rp[1]
 
 
 def test_json_envelope_read_both_ways():
@@ -173,3 +195,73 @@ def test_tool_needs_a_card_or_device_cpu(simple):
     _, pf, _, _ = simple
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ptool.main([str(pf), "--test-map-pgs"])
+
+
+def busy_map(path, seed):
+    """A map whose every pipeline stage has work: down and out OSDs,
+    primary affinities, an EC pool beside the replicated one, upmaps,
+    upmap items, pg_temp and primary_temp."""
+    rng = np.random.default_rng(seed)
+    m = JOSDMap.from_dict(json.loads(path.read_text()))
+    m.osd_state[3] &= ~OSD_UP
+    m.osd_weight[5] = 0
+    m.set_primary_affinity(1, 0x4000)
+    m.set_primary_affinity(7, 0)
+    m.pools[2] = type(m.pools[1])(pool_type=3, size=4, pg_num=48,
+                                  pgp_num=40, crush_rule=0)
+    for pool, n in ((1, m.pools[1].pg_num), (2, 48)):
+        for ps in rng.choice(n, 6, replace=False):
+            m.pg_upmap_items[(pool, int(ps))] = [
+                (int(rng.integers(12)), int(rng.integers(12)))]
+        for ps in rng.choice(n, 4, replace=False):
+            m.pg_temp[(pool, int(ps))] = [int(o) for o in
+                                          rng.choice(12, 3, replace=False)]
+        for ps in rng.choice(n, 2, replace=False):
+            m.pg_upmap[(pool, int(ps))] = [int(o) for o in
+                                           rng.choice(12, 3, replace=False)]
+        m.primary_temp[(pool, int(rng.integers(n)))] = int(rng.integers(12))
+    path.write_text(json.dumps(m.to_dict()))
+
+
+@pytest.mark.parametrize("pool", [None, 1, 2])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_dump_is_one_map_all_a_pool(simple, capfd, monkeypatch, pool, seed):
+    """--test-map-pgs-dump sweeps each pool with one PoolMapper.map_all
+    on --device and prints what the scalar pipeline prints, in both
+    packages."""
+    jf, pf, _, _ = simple
+    busy_map(jf, seed)
+    pf.write_text(jf.read_text())
+    calls = []
+    map_all = PoolMapper.map_all
+
+    def counted(self, *a, **k):
+        calls.append(self.pool_id)
+        return map_all(self, *a, **k)
+
+    monkeypatch.setattr(PoolMapper, "map_all", counted)
+    sel = [] if pool is None else ["--pool", pool]
+    rj = run(jtool, [jf, "--test-map-pgs-dump", "--scalar"] + sel, capfd)
+    rp = run(ptool, [pf, "--test-map-pgs-dump", "--device", "cpu"] + sel,
+             capfd)
+    assert calls == ([1, 2] if pool is None else [pool])
+    rs = run(ptool, [pf, "--test-map-pgs-dump", "--scalar"] + sel, capfd)
+    assert calls == ([1, 2] if pool is None else [pool])
+    assert rj == rp == rs and rp[0] == 0
+    assert len(rp[1].splitlines()) == {None: 240, 1: 192, 2: 48}[pool]
+
+
+def test_scalar_asks_for_no_card(simple, tmp_path, capfd):
+    """--scalar runs the scalar pipeline on the host: no --device needed,
+    and a device that could not be used is never resolved."""
+    jf, pf, _, _ = simple
+    weighted(jf, 3)
+    pf.write_text(jf.read_text())
+    for dev in ([], ["--device", "nonsense"]):
+        for verb in (["--test-map-pgs"], ["--test-map-pgs-dump"],
+                     ["--upmap", tmp_path / "u.sh"]):
+            assert run(ptool, [pf] + verb + ["--scalar"] + dev,
+                       capfd)[0] == 0
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ptool.main([str(pf), "--test-map-pgs-dump"])
