@@ -20,10 +20,22 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .gf2_kernels import gf2_fragments, gf2_matmul_w8
+from . import gf2_kernels
 from .gfw import gf2_mat_inv
 
 DECODE_CACHE_SIZE = 512  # erasure signatures kept per code
+
+
+def device_matrix(bm: np.ndarray, device: torch.device):
+    """A 0/1 bit matrix on ``device`` with K1's fragments of it (None on
+    the CPU), for a caller that applies it many times.  The fragments
+    are built on the current stream, which is waited for once here, so
+    a launch on any stream may use them."""
+    t = torch.from_numpy(np.ascontiguousarray(bm, np.uint8)).to(device)
+    frag = gf2_kernels.gf2_fragments(t)
+    if frag is not None:
+        torch.cuda.current_stream(device).synchronize()
+    return t, frag
 
 
 class Layout:
@@ -33,8 +45,8 @@ class Layout:
     def __init__(self, w: int, packetsize: int = 0):
         if w != 8 or packetsize:
             raise NotImplementedError(
-                f"layout w={w} packetsize={packetsize} is not ported yet; "
-                f"only the w=8 byte layout is")
+                f"layout w={w} packetsize={packetsize} is not ported yet "
+                f"(ROADMAP.md queue 1 item 3); only the w=8 byte layout is")
         self.w = w
         self.packetsize = packetsize
 
@@ -60,17 +72,9 @@ class BitCode:
         self.coding_bm = coding_bm
         self.full_bm = np.concatenate(
             [np.eye(w * k, dtype=np.uint8), coding_bm], axis=0)
-        self._enc_dev = torch.from_numpy(coding_bm.copy()).to(self.device)
-        self._enc_frag = self._fragments(self._enc_dev)  # K1's form of it
+        # K1's form of it: the matrix and its fragments
+        self._enc_dev, self._enc_frag = device_matrix(coding_bm, self.device)
         self._dec_cache: Dict[Tuple[int, ...], tuple] = {}
-
-    def _fragments(self, bm: torch.Tensor):
-        """K1's fragments of ``bm``, kept for launches on any stream:
-        built on the current one, which is waited for once here."""
-        frag = gf2_fragments(bm)
-        if frag is not None:
-            torch.cuda.current_stream(self.device).synchronize()
-        return frag
 
     def _tensor(self, data) -> torch.Tensor:
         t = torch.as_tensor(data, dtype=torch.uint8, device=self.device)
@@ -78,12 +82,17 @@ class BitCode:
 
     # -- encode -------------------------------------------------------
     def encode(self, data) -> torch.Tensor:
-        """u8[k, L] -> parity u8[m, L]."""
-        data = self._tensor(data)
-        if data.dim() != 2 or data.shape[0] != self.k:
-            raise ValueError(f"expected [k={self.k}, L], got "
-                             f"{tuple(data.shape)}")
-        return gf2_matmul_w8(self._enc_dev, data, self._enc_frag)
+        """u8[k, L] (or a sequence of k u8[L] rows, read where they lie)
+        -> parity u8[m, L]."""
+        if isinstance(data, (list, tuple)):
+            data = [self._tensor(r) for r in data]
+        else:
+            data = self._tensor(data)
+            if data.dim() != 2 or data.shape[0] != self.k:
+                raise ValueError(f"expected [k={self.k}, L], got "
+                                 f"{tuple(data.shape)}")
+        return gf2_kernels.gf2_matmul_w8(self._enc_dev, data,
+                                         self._enc_frag)
 
     def encode_batched(self, stripes) -> torch.Tensor:
         """u8[B, k, L] -> parity u8[B, m, L] in one kernel launch.  The
@@ -93,7 +102,8 @@ class BitCode:
         if stripes.dim() != 3 or stripes.shape[1] != self.k:
             raise ValueError(f"expected [B, k={self.k}, L], got "
                              f"{tuple(stripes.shape)}")
-        return gf2_matmul_w8(self._enc_dev, stripes, self._enc_frag)
+        return gf2_kernels.gf2_matmul_w8(self._enc_dev, stripes,
+                                         self._enc_frag)
 
     def all_chunks(self, data) -> torch.Tensor:
         """u8[k, L] -> u8[k+m, L]: systematic data + parity."""
@@ -110,8 +120,7 @@ class BitCode:
             w = self.layout.w
             rows = np.concatenate(
                 [self.full_bm[c * w:(c + 1) * w] for c in present], axis=0)
-            inv = torch.from_numpy(gf2_mat_inv(rows)).to(self.device)
-            mats = (inv, self._fragments(inv))
+            mats = device_matrix(gf2_mat_inv(rows), self.device)
             if len(self._dec_cache) >= DECODE_CACHE_SIZE:
                 self._dec_cache.pop(next(iter(self._dec_cache)))
             self._dec_cache[present] = mats
@@ -127,8 +136,8 @@ class BitCode:
         inv, frag = self._decode_mats(present)
         # the kernel reads the survivors where they lie (a table of row
         # pointers); nothing is stacked on the card
-        return gf2_matmul_w8(inv, [self._tensor(chunks[i]) for i in present],
-                             frag)
+        return gf2_kernels.gf2_matmul_w8(
+            inv, [self._tensor(chunks[i]) for i in present], frag)
 
     def decode(self, want: Sequence[int],
                chunks: Dict[int, object]) -> Dict[int, torch.Tensor]:
@@ -137,10 +146,15 @@ class BitCode:
         have = {i: self._tensor(c) for i, c in chunks.items()}
         missing = [i for i in want if i not in have]
         if missing:
-            data = self.decode_data(have)
-            for i in range(self.k):
-                if i not in have:
-                    have[i] = data[i]
+            if all(i in have for i in range(self.k)):
+                # only parity is lost: the data rows are its input as
+                # they are, and the inverse would be the identity
+                data = [have[i] for i in range(self.k)]
+            else:
+                data = self.decode_data(have)
+                for i in range(self.k):
+                    if i not in have:
+                        have[i] = data[i]
             if any(i >= self.k for i in missing):
                 parity = self.encode(data)
                 for i in missing:

@@ -72,6 +72,28 @@ Phases (any failure raises and the script exits non-zero):
    the changed PGs must equal the scalar pipeline and pool 1's stddev
    must fall if anything changed.  Each part's time is split into
    ``map_all`` (CUDA events), the host tally and the optimizer's search.
+7. crushtool on ``map_big10k``, with K2's count at 0: ``CrushTester``
+   sweeps of rule 0 over 1 M PGs and rule 1 over 262,144, every row held
+   to the native engine and the plain walk, reports and text equal to
+   ``--native``; ``--pool``, ``--compare`` and the sample map built with
+   crushtool's own verbs.
+8. The EC plugins, with K1's count at 0: ``ec_benchmark --verify`` on
+   the card for seven profiles (``BASELINE.json`` configs 2-4: jerasure
+   reed_sol_van 4+2, isa 8+3, lrc 4/2/3; the corpus's shec 4/3/2 and
+   clay 4+2; isa cauchy 8+3, jerasure reed_sol_r6_op 8+2): encode of a
+   4 MiB object 200 times, decode of 200 random single erasures and of
+   every set of m erasures (c for SHEC); ``encode_batched`` of 64 x 4
+   MiB objects (isa 8+3); ``ec_non_regression --check`` of the five w=8
+   corpus directories (and the packet one, which must fail as not
+   ported).  Then, with the kernel's calls tapped and not counted: every
+   chunk of those encodes and decodes equal to the same profile on the
+   native engine (SHEC, which has none, on the CPU) and to the object,
+   and the first 64 KiB columns of every K1 product equal to its plain
+   version on the card; each call's K1 launches replayed in a CUDA
+   graph for their device time, the object's copy to the card timed
+   apart.  Last, each plugin's ``create_rule`` (and an LRC rule with
+   locality and an isa rule on a device class) on ``map_big10k``, 65,536
+   PGs through K2 equal to the native engine.
 
 The scalar oracles run in worker processes (spawned, stopped at the
 end) beside the card's work.
@@ -84,10 +106,12 @@ operations over its peak rate for their type (published H100 SXM
 figures; K1's 1-bit products are counted at the int8 rate, which is
 lower).  It prints
 the card's name and power limit, one line per kernel, one ``kernels``
-JSON line (K2's launches: phase 4's, and one a ``map_all`` call in
-phases 5 and 6), K2's variants, the
+JSON line (K1's launches: phases 4 and 8; K2's: phase 4's, one a
+``map_all`` call in phases 5 and 6, one a sweep in phase 7 and one a
+rule in phase 8), K2's variants, the
 flagship rates, the pipeline's rates, the balancer's records and time
-split, and last the contract line
+split, crushtool's record, one ``ec_plugins`` line per profile and
+workload, and last the contract line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the rest of the repository beside it, it exits non-zero and prints no
 result.
@@ -1473,6 +1497,10 @@ def phase_crushtool(dev, workdir, card, n_rep=SWEEP_REP, n_ec=SWEEP_EC,
             utilization(rows, lens, n_dev),
             torch.bincount(lens.to(torch.int64)),
             (lens != numrep).nonzero()), 5)
+        # utilization's bincount: its int32 entries read once, its
+        # int64 counts written once
+        rec["tally_bound_ms"] = (rows.numel() * 4 + (n_dev + 1) * 8) \
+            / HBM_BYTES_PER_S * 1e3
         # what the sweep and the report, timed apart, leave of a call:
         # negative where the host's work overlaps the card's in a call
         rec["rest_s"] = rec["test_rule_s"] - rec["sweep_host_s"] \
@@ -1494,7 +1522,8 @@ def phase_crushtool(dev, workdir, card, n_rep=SWEEP_REP, n_ec=SWEEP_EC,
             f"{rec['rest_s'] * 1e3:.3f} ms; device: xs "
             f"{rec['xs_ms']:.4f} ms, K2 {rec['k2_ms']:.4f} ms (bound "
             f"{rec['k2_bound_ms']:.4f}, {rec['k2_bound_by']}), stats ops "
-            f"{rec['stats_device_ms']:.4f} ms; map lowering (once a "
+            f"{rec['stats_device_ms']:.4f} ms (the tally's byte bound "
+            f"{rec['tally_bound_ms']:.4f} ms); map lowering (once a "
             f"tester) {rec['mapper_setup_s'] * 1e3:.2f} ms; native "
             f"{rec['native_s'] * 1e3:.1f} ms on {threads} threads "
             f"({rec['native_mappings_per_s']:.4g} mappings/s): the card "
@@ -1573,6 +1602,387 @@ def phase_crushtool(dev, workdir, card, n_rep=SWEEP_REP, n_ec=SWEEP_EC,
     return out, sweeps
 
 
+# -- phase 8 ----------------------------------------------------------
+
+EC_OBJECT = 4 << 20   # the default RADOS object size of RBD and CephFS
+EC_ITERS = 200
+EC_NATIVE_ITERS = 20  # the native engine's timed calls (encode, random)
+EC_BATCH = 64
+EC_CHECK = 1 << 16    # columns of each K1 product held to its plain version
+EC_RULE_PGS = 65536
+# (label, plugin, profile, BASELINE.json config or None, erasures of the
+# exhaustive decode sweep: m, or c for SHEC, whose durability it is)
+EC_PROFILES = (
+    ("jerasure reed_sol_van k=4 m=2", "jerasure",
+     {"technique": "reed_sol_van", "k": "4", "m": "2"}, 2, 2),
+    ("isa reed_sol_van k=8 m=3", "isa", {"k": "8", "m": "3"}, 3, 3),
+    ("lrc k=4 m=2 l=3", "lrc", {"k": "4", "m": "2", "l": "3"}, 4, 2),
+    ("shec k=4 m=3 c=2", "shec", {"k": "4", "m": "3", "c": "2"}, None, 2),
+    ("clay k=4 m=2", "clay", {"k": "4", "m": "2"}, None, 2),
+    ("isa cauchy k=8 m=3", "isa",
+     {"technique": "cauchy", "k": "8", "m": "3"}, None, 3),
+    ("jerasure reed_sol_r6_op k=8 m=2", "jerasure",
+     {"technique": "reed_sol_r6_op", "k": "8", "m": "2"}, None, 2),
+)
+# rules only: an LRC rule with locality (choose indep racks, then
+# chooseleaf indep hosts) and an isa rule through a device class's
+# shadow tree
+EC_RULE_ONLY = (
+    ("lrc k=4 m=2 l=3 crush-locality=rack", "lrc",
+     {"k": "4", "m": "2", "l": "3", "crush-locality": "rack"}),
+    ("isa k=8 m=3 crush-device-class=ssd", "isa",
+     {"k": "8", "m": "3", "crush-device-class": "ssd"}),
+)
+CORPUS_W8 = ("clay-k=4-m=2", "isa-k=8-m=3",
+             "jerasure-k=4-m=2-technique=reed_sol_van-w=8",
+             "lrc-k=4-l=3-m=2", "shec-c=2-k=4-m=3")
+CORPUS_PACKET = "jerasure-k=4-m=3-packetsize=8-technique=cauchy_good-w=8"
+
+
+class K1Tap:
+    """Replaces ``gf2_kernels.gf2_matmul_w8`` (which every plugin calls
+    through its module) while open.  ``check``: each product's first
+    ``EC_CHECK`` columns are held to the plain version on the same
+    device.  ``record``: each launch's arguments are kept, to be
+    replayed.  The launches made meanwhile add to the tap's own count,
+    never to the kernel's."""
+
+    def __init__(self, check=False, record=False):
+        self.check, self.record = check, record
+        self.calls, self.products = [], 0
+
+    def __enter__(self):
+        import torch
+
+        from ceph_tpu_torch.ec import gf2_kernels
+
+        self.mod, self.real = gf2_kernels, gf2_kernels.gf2_matmul_w8
+        real, plain = self.real, gf2_kernels.gf2_matmul_w8_plain
+
+        def tap(bm, data, fragments=None):
+            out = real(bm, data, fragments)
+            if self.record:
+                self.calls.append((bm, data, fragments))
+            if self.check:
+                rows = torch.stack([r[:EC_CHECK] for r in data]) \
+                    if isinstance(data, (list, tuple)) \
+                    else data[..., :EC_CHECK]
+                if max_abs_err(out[..., :EC_CHECK], plain(bm, rows)):
+                    raise AssertionError(
+                        f"K1 differs from its plain version on a plugin's "
+                        f"product {tuple(bm.shape)}")
+                self.products += 1
+            return out
+
+        tap.launches = 0
+        self.mod.gf2_matmul_w8 = tap
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.gf2_matmul_w8 = self.real
+        return False
+
+    def replay(self, i=0):
+        for bm, data, frag in self.calls:
+            self.real(bm, data, frag)
+
+    def bound_ms(self):
+        """The recorded launches' byte bound: each input row read once,
+        each output row and the bit matrix written or read once."""
+        nbytes = 0
+        for bm, data, _ in self.calls:
+            k, m = bm.shape[1] // 8, bm.shape[0] // 8
+            cols = data[0].numel() if isinstance(data, (list, tuple)) \
+                else data.numel() // k
+            nbytes += (k + m) * cols + bm.numel()
+        return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def run_tool_err(tool, args):
+    """(exit code, stdout, stderr) of ``tool.main(args)``."""
+    import contextlib
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = tool.main([str(a) for a in args])
+    return rc, out.getvalue(), err.getvalue()
+
+
+def ec_bench_args(plugin, profile, workload, device, erasures=None,
+                  exhaustive=False, iters=EC_ITERS):
+    args = ["--plugin", plugin, "--device", device]
+    for key, v in profile.items():
+        args += ["-P", f"{key}={v}"]
+    args += ["--workload", workload, "--size", EC_OBJECT, "--iterations",
+             iters, "--verify"]
+    if erasures:
+        args += ["--erasures", erasures]
+    if exhaustive:
+        args += ["--erasures-generation", "exhaustive"]
+    return args
+
+
+def ec_tool_rate(tool, args, label):
+    """(GB/s, seconds) of an ec_benchmark run from its reference line."""
+    rc, out, err = run_tool_err(tool, args)
+    if rc != 0:
+        raise AssertionError(f"ec_benchmark {label} exited {rc}: {err}")
+    elapsed, kib = out.strip().split("\t")
+    return int(kib) * 1024 / float(elapsed) / 1e9, float(elapsed)
+
+
+def ec_workloads(n, erasures):
+    """(name, ec_benchmark erasure flags, the erasure sets it decodes)."""
+    from ceph_tpu_torch.tools.ec_benchmark import erasure_sets
+
+    return (("encode", {}, None),
+            ("decode_1_random", {"erasures": 1},
+             erasure_sets(n, 1, "random", EC_ITERS)),
+            (f"decode_{erasures}_exhaustive",
+             {"erasures": erasures, "exhaustive": True},
+             erasure_sets(n, erasures, "exhaustive", 0)))
+
+
+def ec_check_bytes(code, oracle, raw, workloads, label):
+    """Every chunk of an encode of ``raw`` and every decode of the
+    workloads' erasure sets on the card equal to ``oracle``'s (the
+    same profile on the native engine, or on the CPU), and to the
+    object; each K1 product's first columns equal to the plain
+    version's on the card.  Returns the products checked."""
+    import torch
+
+    n = code.get_chunk_count()
+    want = {code.chunk_index(i) for i in range(code.get_data_chunk_count())}
+    with K1Tap(check=True) as tap:
+        card = code.encode(range(n), raw)
+        ref = oracle.encode(range(n), raw)
+        for i in range(n):
+            if not torch.equal(card[i].cpu(), ref[i].cpu()):
+                raise AssertionError(f"{label}: chunk {i} differs from the "
+                                     f"oracle's")
+        sets = sorted({e for _, _, es in workloads if es for e in es})
+        for erased in sets:
+            avail = {i: c for i, c in card.items() if i not in erased}
+            got = code.decode(want, avail)
+            exp = oracle.decode(want, {i: ref[i] for i in avail})
+            for i in want:
+                if not torch.equal(got[i].cpu(), exp[i].cpu()):
+                    raise AssertionError(f"{label}: decode of {erased} "
+                                         f"differs from the oracle's")
+            back = code.decode_concat(avail).cpu().numpy().tobytes()
+            if back[:len(raw)] != raw:
+                raise AssertionError(f"{label}: decode of {erased} did not "
+                                     f"give the object back")
+    return tap.products, len(sets)
+
+
+def ec_call_times(code, raw, sets):
+    """One encode (``sets`` None) or one decode of the first of ``sets``
+    that loses a data chunk: its K1 launches replayed in a CUDA graph
+    (device ms a call), and the copy of the object to the card alone
+    (ms, encode only)."""
+    import torch
+
+    n = code.get_chunk_count()
+    dev = code.device
+    chunks = code.encode(range(n), raw)
+    want = {code.chunk_index(i) for i in range(code.get_data_chunk_count())}
+    erased = None if sets is None else next(
+        (e for e in sets if want & set(e)), sets[0])
+    with K1Tap(record=True) as tap:
+        if erased is None:
+            code.encode(range(n), raw)
+        else:
+            code.decode(want, {i: c for i, c in chunks.items()
+                               if i not in erased})
+    k1_ms = cuda_graph_ms(tap.replay, 1) if tap.calls else 0.0
+    src = torch.frombuffer(bytearray(raw), dtype=torch.uint8)
+    h2d_ms = cuda_ms(lambda i: src.to(dev), 10) if erased is None else None
+    return k1_ms, len(tap.calls), tap.bound_ms(), h2d_ms
+
+
+def big10k_wrapper():
+    """``map_big10k`` as a named CrushWrapper: its root is ``default``
+    and every even OSD is of class ``ssd``, every odd one ``hdd``."""
+    from ceph_tpu_torch.crush.wrapper import CrushWrapper
+
+    cmap, cases = load_map("map_big10k")
+    w = CrushWrapper(cmap)
+    (root,) = [b.id for b in cmap.buckets.values() if b.type == 3]
+    w.set_item_name(root, "default")
+    for o in range(cmap.max_devices):
+        w.set_item_class(o, "ssd" if o % 2 == 0 else "hdd")
+    return w, np.asarray(cases[0]["weight"], np.uint32)
+
+
+def phase_ec_plugins(dev, workdir, card):
+    """The EC plugins on the card: ec_benchmark for every profile, the
+    batched encode, the corpus and each plugin's rule through K2.
+    Returns (records, K1 launches of the main path, K2 launches)."""
+    import shutil
+
+    import torch
+
+    from ceph_tpu_torch.crush import mapper, native
+    from ceph_tpu_torch.crush.mapper import BatchedMapper
+    from ceph_tpu_torch.ec import gf2_kernels
+    from ceph_tpu_torch.ec.registry import factory
+    from ceph_tpu_torch.tools import ec_benchmark, ec_non_regression
+
+    t_phase = time.perf_counter()
+    out = {"card": card, "native_threads": native.threads(), "runs": []}
+    raw = ec_benchmark.payload(EC_OBJECT)
+
+    # the main path, with K1's count at 0: ec_benchmark runs on the card,
+    # then the batched encode and the corpus
+    gf2_kernels.gf2_matmul_w8.launches = 0
+    for label, plugin, profile, config, erasures in EC_PROFILES:
+        code = factory(plugin, profile, device=dev)
+        for wl, flags, sets in ec_workloads(code.get_chunk_count(),
+                                            erasures):
+            gbps, secs = ec_tool_rate(ec_benchmark, ec_bench_args(
+                plugin, profile, wl.split("_")[0], dev.type, **flags),
+                f"{label} {wl}")
+            calls = len(sets) if sets else EC_ITERS
+            out["runs"].append({"profile": label, "baseline_config": config,
+                                "workload": wl, "gbps": gbps,
+                                "ms_per_call": secs / calls * 1e3,
+                                "calls": calls})
+    isa = factory("isa", {"k": "8", "m": "3"}, device=dev)
+    rng = np.random.default_rng(8)
+    raws = [rng.integers(0, 256, EC_OBJECT, dtype=np.uint8).tobytes()
+            for _ in range(EC_BATCH)]
+    n = isa.get_chunk_count()
+    batched = isa.encode_batched(range(n), raws)   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batched = isa.encode_batched(range(n), raws)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    corpus_ok = os.path.join(workdir, "corpus_w8")
+    corpus_packet = os.path.join(workdir, "corpus_packet")
+    for base, names in ((corpus_ok, CORPUS_W8),
+                        (corpus_packet, (CORPUS_PACKET,))):
+        for name in names:
+            shutil.copytree(os.path.join(REPO, "tests", "corpus", name),
+                            os.path.join(base, name))
+    rc, text, err = run_tool_err(ec_non_regression, [
+        "--check", "--device", dev.type, "--base", corpus_ok])
+    if rc != 0 or "checked 5 corpus entries: OK" not in text:
+        raise AssertionError(f"ec_non_regression --check of the w=8 "
+                             f"corpus: {rc} {text} {err}")
+    k1_launches = gf2_kernels.gf2_matmul_w8.launches
+    if k1_launches < 1:
+        raise AssertionError("gf2_matmul_w8 was not launched on the EC "
+                             "plugins' path")
+    log(f"ec corpus: ec_non_regression --check --device {dev.type} of "
+        f"{len(CORPUS_W8)} w=8 directories: {text.strip()}")
+    rc, text, err = run_tool_err(ec_non_regression, [
+        "--check", "--device", dev.type, "--base", corpus_packet])
+    if rc != 1 or "not ported yet" not in err:
+        raise AssertionError(f"ec_non_regression of the packet directory "
+                             f"must fail as not ported: {rc} {err}")
+    log(f"ec corpus packet directory: {err.strip()}")
+
+    # checks, with K1's count set aside: every profile's bytes against
+    # the native engine (SHEC, which has none, against the CPU), each
+    # product against the plain version; then device times
+    for label, plugin, profile, config, erasures in EC_PROFILES:
+        code = factory(plugin, profile, device=dev)
+        oracle = factory(plugin, profile, device="cpu") if plugin == "shec" \
+            else factory(plugin, {**profile, "engine": "native"})
+        wls = ec_workloads(code.get_chunk_count(), erasures)
+        products, n_sets = ec_check_bytes(code, oracle, raw, wls, label)
+        native_by = "the CPU (no native engine)" if plugin == "shec" \
+            else "native"
+        log(f"ec check {label}: encode and {n_sets} decodes of a "
+            f"{EC_OBJECT}-byte object equal to {native_by} and to the "
+            f"object; {products} K1 products' first {EC_CHECK} columns "
+            f"equal to the plain version")
+        for rec in out["runs"]:
+            if rec["profile"] != label:
+                continue
+            wl = rec["workload"]
+            sets = dict((w, s) for w, _, s in wls)[wl]
+            (rec["k1_ms"], rec["k1_launches_per_call"],
+             rec["k1_bound_ms"], rec["h2d_ms"]) = ec_call_times(code, raw,
+                                                                sets)
+            if plugin != "shec":
+                flags = dict((w, f) for w, f, _ in wls)[wl]
+                rec["native_gbps"], _ = ec_tool_rate(
+                    ec_benchmark, ec_bench_args(
+                        plugin, {**profile, "engine": "native"},
+                        wl.split("_")[0], "cpu", iters=EC_NATIVE_ITERS,
+                        **flags), f"{label} {wl} native")
+            else:
+                rec["native_gbps"] = None
+            log("ec_plugins: " + json.dumps({"card": card, **rec}))
+
+    # the batched encode, held to per-object encodes and the native engine
+    nat = factory("isa", {"k": "8", "m": "3", "engine": "native"})
+    for b in range(EC_BATCH):
+        one = isa.encode(range(n), raws[b])
+        ref = nat.encode(range(n), raws[b])
+        for i in range(n):
+            if not (torch.equal(batched[b][i], one[i])
+                    and torch.equal(batched[b][i].cpu(), ref[i])):
+                raise AssertionError(f"encode_batched object {b} chunk {i} "
+                                     f"differs from encode or native")
+    with K1Tap(record=True) as tap:
+        isa.encode_batched(range(n), raws)
+    srcs = [torch.frombuffer(bytearray(r), dtype=torch.uint8) for r in raws]
+    h2d_ms = cuda_ms(lambda i: [s.to(dev) for s in srcs], 3)
+    rec = {"profile": "isa reed_sol_van k=8 m=3", "baseline_config": 3,
+           "workload": f"encode_batched {EC_BATCH} x {EC_OBJECT}",
+           "gbps": EC_BATCH * EC_OBJECT / batch_s / 1e9,
+           "ms_per_call": batch_s * 1e3,
+           "k1_ms": cuda_graph_ms(tap.replay, 1),
+           "k1_launches_per_call": len(tap.calls),
+           "k1_bound_ms": tap.bound_ms(), "h2d_ms": h2d_ms}
+    t0 = time.perf_counter()
+    for b in range(EC_BATCH):
+        nat.encode(range(n), raws[b])
+    rec["native_gbps"] = EC_BATCH * EC_OBJECT / (time.perf_counter() - t0) \
+        / 1e9
+    out["runs"].append(rec)
+    log("ec_plugins: " + json.dumps({"card": card, **rec}))
+    del batched, raws, srcs
+
+    # each plugin's rule on map_big10k through K2, against native
+    w, weight = big10k_wrapper()
+    mapper.crush_rule_batched.launches = 0
+    rules = []
+    for label, plugin, profile, *_ in EC_PROFILES + EC_RULE_ONLY:
+        code = factory(plugin, profile, device=dev)
+        rules.append((label, code.create_rule(f"ec {label}", w),
+                      code.get_chunk_count()))
+    w._refresh_shadow()
+    bm = BatchedMapper(w.crush, device=dev)
+    nm = native.NativeMapper(w.crush)
+    xs = np.arange(EC_RULE_PGS, dtype=np.uint32)
+    for label, rid, size in rules:
+        res, lens = bm.map_batch(rid, xs, size, weight)
+        nres, nlens = nm.map_batch(rid, xs, size, weight)
+        res, lens = res.cpu().numpy(), lens.cpu().numpy()
+        cols = np.arange(size)[None, :]
+        if not (np.array_equal(lens, nlens) and np.array_equal(
+                np.where(cols < lens[:, None], res, 0),
+                np.where(cols < nlens[:, None], nres, 0))):
+            raise AssertionError(f"rule of {label}: K2 differs from native")
+        log(f"ec rule {label}: rule {rid} "
+            f"{[(s.op, s.arg1, s.arg2) for s in w.crush.rules[rid].steps]}"
+            f" over {EC_RULE_PGS} PGs, {int((lens == size).sum())} full: "
+            f"K2 equal to native")
+    k2_launches = mapper.crush_rule_batched.launches
+    if k2_launches != len(rules):
+        raise AssertionError(f"{len(rules)} EC rules launched K2 "
+                             f"{k2_launches} times")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"ec plugins phase: {out['phase_s']:.1f} s")
+    return out, k1_launches, k2_launches
+
+
 def main():
     import tempfile
 
@@ -1643,6 +2053,14 @@ def main():
                                  f"launched K2 {tool_launches} times")
         tool["k2_launches"] = tool_launches
         k2["launches"] += tool_launches
+
+        # the EC plugins: K1's count at 0 before their main path, K2's
+        # before their rules
+        with tempfile.TemporaryDirectory() as workdir:
+            ec, ec_k1, ec_k2 = phase_ec_plugins(dev, workdir, card)
+        k1["launches"] += ec_k1
+        k2["launches"] += ec_k2
+        ec["k1_launches"], ec["k2_launches"] = ec_k1, ec_k2
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
     for k in (k1, k2):
@@ -1665,6 +2083,9 @@ def main():
                                     "big10k": big,
                                     "k2_launches": bal_launches}))
     log("crushtool: " + json.dumps(tool))
+    log("ec_plugins_phase: " + json.dumps(
+        {key: ec[key] for key in ("card", "native_threads", "phase_s",
+                                  "k1_launches", "k2_launches")}))
     log(f"gpu: {card}")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

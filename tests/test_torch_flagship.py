@@ -134,7 +134,11 @@ def test_port_never_imports_jax_or_the_jax_package(tmp_path):
                  "tools.osdmaptool", "convert", "flagship",
                  "crush.location", "crush.native", "parallel.placement",
                  "tools.compiler", "tools.tester", "tools.crushtool",
-                 "tools.rule_shapes"):
+                 "tools.rule_shapes", "ec.gfw", "ec.matrices",
+                 "ec.native_gf", "ec.interface", "ec.registry",
+                 "ec.jerasure", "ec.isa", "ec.shec", "ec.lrc", "ec.clay",
+                 "ec.stripe", "tools.ec_benchmark",
+                 "tools.ec_non_regression"):
         assert "ceph_tpu_torch." + name in modules
 
 
