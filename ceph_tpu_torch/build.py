@@ -36,6 +36,7 @@ BUILD_DIR = PKG / "_build"
 SOURCES = {
     "gf2_matmul_w8": CSRC / "gf2_matmul_w8.cu",
     "crush_rule": CSRC / "crush_rule.cu",
+    "gf2_packet": CSRC / "gf2_packet.cu",
 }
 HOST_SOURCE = PKG.parent / "native" / "crush_host.cpp"
 GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-fopenmp", "-shared")

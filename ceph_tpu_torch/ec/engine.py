@@ -1,15 +1,19 @@
-"""The EC execution engine: a GF(2)-linear code as one bit-matmul.
+"""The EC execution engine: a GF(2)-linear code as one bit product.
 
-The port of ``ceph_tpu/ec/engine.py`` for w=8 byte layouts.  Every code
-of this slice is GF(2)-linear, so encode is the coding bit matrix CB
-(8m x 8k) applied to the k data chunks, and decode picks k surviving
-chunks, inverts their rows of ``[I; CB]`` over GF(2) on the host (cached
-per erasure signature, the reference's ErasureCodeIsaTableCache flow),
-and applies the inverse.  Both go through kernel K1
-(``gf2_kernels.gf2_matmul_w8``) on the card.
+The port of ``ceph_tpu/ec/engine.py``.  Every code is GF(2)-linear, so
+encode is the coding bit matrix CB (w*m x w*k) applied to the k data
+chunks' rows, and decode picks k surviving chunks, inverts their rows of
+``[I; CB]`` over GF(2) on the host (cached per erasure signature, the
+reference's ErasureCodeIsaTableCache flow), and applies the inverse.
+The layout (``layout.Layout``) says what a row is, and which kernel
+applies a matrix on the card:
 
-Other layouts (w=16/32 words, packet layouts) are not in this slice:
-``Layout`` raises ``NotImplementedError`` for them.
+- w=8 bytes: kernel K1 (``gf2_kernels.gf2_matmul_w8``);
+- w=16/32 words: K1 over the chunks' virtual chunks
+  (``gf2_kernels.gf2_matmul_words``);
+- packets (w, packetsize): kernel K3 (``gf2_packet.gf2_packet``).
+
+Each takes its kernel's plain version on CPU tensors.
 """
 
 from __future__ import annotations
@@ -20,43 +24,49 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from . import gf2_kernels
+from . import gf2_kernels, gf2_packet
 from .gfw import gf2_mat_inv
+from .layout import Layout
 
 DECODE_CACHE_SIZE = 512  # erasure signatures kept per code
 
 
-def device_matrix(bm: np.ndarray, device: torch.device):
-    """A 0/1 bit matrix on ``device`` with K1's fragments of it (None on
-    the CPU), for a caller that applies it many times.  The fragments
-    are built on the current stream, which is waited for once here, so
-    a launch on any stream may use them."""
+def device_matrix(bm: np.ndarray, device: torch.device,
+                  layout: Layout = None):
+    """A 0/1 bit matrix on ``device`` with its kernel's form of it (K1's
+    fragments for a word or byte layout, K3's row masks for a packet
+    layout; None on the CPU), for a caller that applies it many times.
+    K1's fragments are built on the current stream, which is waited for
+    once here, so a launch on any stream may use them."""
     t = torch.from_numpy(np.ascontiguousarray(bm, np.uint8)).to(device)
-    frag = gf2_kernels.gf2_fragments(t)
-    if frag is not None:
+    if layout is not None and layout.is_packet:
+        aux = gf2_packet.packet_masks(t, layout.w)
+    else:
+        aux = gf2_kernels.gf2_fragments(t)
+    if aux is not None:
         torch.cuda.current_stream(device).synchronize()
-    return t, frag
+    return t, aux
 
 
-class Layout:
-    """Chunk bytes <-> GF(2) rows.  Only the w=8 byte layout (each byte
-    is 8 bit planes) is ported; it takes any chunk length."""
-
-    def __init__(self, w: int, packetsize: int = 0):
-        if w != 8 or packetsize:
-            raise NotImplementedError(
-                f"layout w={w} packetsize={packetsize} is not ported yet "
-                f"(ROADMAP.md queue 1 item 3); only the w=8 byte layout is")
-        self.w = w
-        self.packetsize = packetsize
+def apply(layout: Layout, bm: torch.Tensor, aux, data) -> torch.Tensor:
+    """``bm`` applied in ``layout`` to ``data`` (u8[k, L], u8[B, k, L]
+    or a sequence of k u8[L] rows, read where they lie) by the layout's
+    route; ``aux`` from ``device_matrix``."""
+    if layout.is_packet:
+        return gf2_packet.gf2_packet(bm, data, layout.w, layout.packetsize,
+                                     aux)
+    if layout.w == 8:
+        return gf2_kernels.gf2_matmul_w8(bm, data, aux)
+    return gf2_kernels.gf2_matmul_words(bm, data, layout.w, aux)
 
 
 class BitCode:
-    """A systematic GF(2)-linear code executed as bit-matmuls.
+    """A systematic GF(2)-linear code executed as bit products.
 
-    ``coding_bm``: (8m, 8k) 0/1 coding bit matrix (rows produce the m
-    parity chunks' bit planes from the k data chunks' bit planes).
-    Tensors the methods return live on ``device``.
+    ``coding_bm``: (w*m, w*k) 0/1 coding bit matrix (rows produce the m
+    parity chunks' rows from the k data chunks' rows) in ``layout``
+    (w=8 bytes by default).  Tensors the methods return live on
+    ``device``.
     """
 
     def __init__(self, k: int, m: int, coding_bm: np.ndarray,
@@ -72,13 +82,19 @@ class BitCode:
         self.coding_bm = coding_bm
         self.full_bm = np.concatenate(
             [np.eye(w * k, dtype=np.uint8), coding_bm], axis=0)
-        # K1's form of it: the matrix and its fragments
-        self._enc_dev, self._enc_frag = device_matrix(coding_bm, self.device)
+        # the kernel's form of it: the matrix and its fragments or masks
+        self._enc_dev, self._enc_frag = device_matrix(coding_bm, self.device,
+                                                      self.layout)
         self._dec_cache: Dict[Tuple[int, ...], tuple] = {}
 
     def _tensor(self, data) -> torch.Tensor:
         t = torch.as_tensor(data, dtype=torch.uint8, device=self.device)
         return t.contiguous()
+
+    def _apply(self, bm, aux, data) -> torch.Tensor:
+        first = data[0] if isinstance(data, (list, tuple)) else data
+        self.layout.check(first.shape[-1])
+        return apply(self.layout, bm, aux, data)
 
     # -- encode -------------------------------------------------------
     def encode(self, data) -> torch.Tensor:
@@ -91,19 +107,18 @@ class BitCode:
             if data.dim() != 2 or data.shape[0] != self.k:
                 raise ValueError(f"expected [k={self.k}, L], got "
                                  f"{tuple(data.shape)}")
-        return gf2_kernels.gf2_matmul_w8(self._enc_dev, data,
-                                         self._enc_frag)
+        return self._apply(self._enc_dev, self._enc_frag, data)
 
     def encode_batched(self, stripes) -> torch.Tensor:
         """u8[B, k, L] -> parity u8[B, m, L] in one kernel launch.  The
         kernel indexes the stripes in place, so nothing is transposed or
-        copied on the way; byte-identical to B ``encode`` calls."""
+        copied on the way (but a word layout's virtual chunks);
+        byte-identical to B ``encode`` calls."""
         stripes = self._tensor(stripes)
         if stripes.dim() != 3 or stripes.shape[1] != self.k:
             raise ValueError(f"expected [B, k={self.k}, L], got "
                              f"{tuple(stripes.shape)}")
-        return gf2_kernels.gf2_matmul_w8(self._enc_dev, stripes,
-                                         self._enc_frag)
+        return self._apply(self._enc_dev, self._enc_frag, stripes)
 
     def all_chunks(self, data) -> torch.Tensor:
         """u8[k, L] -> u8[k+m, L]: systematic data + parity."""
@@ -113,14 +128,15 @@ class BitCode:
     # -- decode -------------------------------------------------------
     def _decode_mats(self, present: Tuple[int, ...]):
         """The GF(2) decode matrix for k survivors, inverted on the host
-        and cached by erasure signature with K1's fragments of it:
-        (inverse, fragments or None)."""
+        and cached by erasure signature with its kernel's form of it:
+        (inverse, fragments or masks or None)."""
         mats = self._dec_cache.get(present)
         if mats is None:
             w = self.layout.w
             rows = np.concatenate(
                 [self.full_bm[c * w:(c + 1) * w] for c in present], axis=0)
-            mats = device_matrix(gf2_mat_inv(rows), self.device)
+            mats = device_matrix(gf2_mat_inv(rows), self.device,
+                                 self.layout)
             if len(self._dec_cache) >= DECODE_CACHE_SIZE:
                 self._dec_cache.pop(next(iter(self._dec_cache)))
             self._dec_cache[present] = mats
@@ -133,11 +149,12 @@ class BitCode:
         if len(avail) < self.k:
             raise ValueError("need at least k chunks")
         present = tuple(avail[:self.k])
-        inv, frag = self._decode_mats(present)
+        inv, aux = self._decode_mats(present)
         # the kernel reads the survivors where they lie (a table of row
-        # pointers); nothing is stacked on the card
-        return gf2_kernels.gf2_matmul_w8(
-            inv, [self._tensor(chunks[i]) for i in present], frag)
+        # pointers); nothing is stacked on the card but a word layout's
+        # virtual chunks
+        return self._apply(inv, aux,
+                           [self._tensor(chunks[i]) for i in present])
 
     def decode(self, want: Sequence[int],
                chunks: Dict[int, object]) -> Dict[int, torch.Tensor]:

@@ -14,6 +14,16 @@ inverted survivor matrix).
 ``gf2_matmul_w8.launches`` counts the kernel's launches.  The kernel
 takes the bit matrix as tensor-core fragments, which
 ``gf2_fragments`` builds on the card once per matrix.
+
+``gf2_matmul_words`` runs the w=16 and w=32 word layouts on the same
+kernel.  With wb = w / 8, de-interleave each chunk into wb virtual
+chunks (virtual chunk (c, t) holds bytes t, t + wb, t + 2 wb, ... of
+chunk c): row ``c*w + 8t + s`` of ``Layout(w).to_rows`` is then bit s
+of virtual chunk ``c*wb + t``, K1's w=8 row order.  So the same
+(w*m, w*k) bit matrix, applied by K1 to the k*wb virtual chunks, gives
+the m*wb output virtual chunks, which interleave back into the m
+chunks.  The de-interleave and the interleave are strided PyTorch
+copies around K1.
 """
 
 from __future__ import annotations
@@ -25,6 +35,7 @@ import functools
 import torch
 
 from .. import build
+from .layout import Layout
 
 MAX_K = 32   # input rows: the kernel's table of row pointers
 MAX_M = 32   # output rows
@@ -211,3 +222,58 @@ def gf2_matmul_w8(bm_bits: torch.Tensor, data,
 
 
 gf2_matmul_w8.launches = 0
+
+
+def virtual_chunks(data, wb: int) -> torch.Tensor:
+    """u8[..., k, L] (or a sequence of k u8[L] rows) -> u8[..., k*wb,
+    L/wb]: virtual chunk c*wb + t holds bytes t, t + wb, ... of chunk c.
+    One strided copy."""
+    if isinstance(data, (list, tuple)):
+        return torch.stack([r.view(-1, wb).t() for r in data]).reshape(
+            len(data) * wb, -1)
+    *lead, k, L = data.shape
+    return data.reshape(*lead, k, L // wb, wb).transpose(-1, -2).reshape(
+        *lead, k * wb, L // wb)
+
+
+def interleave_words(out: torch.Tensor, wb: int) -> torch.Tensor:
+    """Inverse of ``virtual_chunks``: u8[..., m*wb, N] -> u8[..., m,
+    N*wb].  One strided copy."""
+    *lead, mwb, N = out.shape
+    return out.reshape(*lead, mwb // wb, wb, N).transpose(-1, -2).reshape(
+        *lead, mwb // wb, N * wb)
+
+
+def gf2_matmul_words_plain(bm_bits: torch.Tensor, data: torch.Tensor,
+                           w: int) -> torch.Tensor:
+    """Plain PyTorch version of the w=16/32 word layouts:
+    ``Layout(w)``'s rows, the product mod 2, packed back."""
+    return Layout(w).apply_plain(bm_bits, data)
+
+
+def gf2_matmul_words(bm_bits: torch.Tensor, data, w: int,
+                     fragments: torch.Tensor = None) -> torch.Tensor:
+    """(w*m, w*k) 0/1 bit matrix applied in the word layout w (16 or 32)
+    to u8[k, L] (or u8[B, k, L], or a sequence of k u8[L] rows; L a
+    multiple of w/8) -> u8[m, L] (or u8[B, m, L]).  On CUDA tensors
+    kernel K1 over the virtual chunks (``fragments``: ``gf2_fragments(
+    bm_bits)``), so k*w/8 and m*w/8 are at most 32 there; the plain
+    version on CPU tensors."""
+    if w not in (16, 32):
+        raise ValueError(f"word layouts are w=16 and w=32, got w={w}")
+    wb = w // 8
+    first = data[0] if isinstance(data, (list, tuple)) else data
+    if first.shape[-1] % wb:
+        raise ValueError(f"chunk size {first.shape[-1]} not a multiple of "
+                         f"word size {wb}")
+    if first.device.type == "cpu":
+        if isinstance(data, (list, tuple)):
+            _check_rows(data, bm_bits.shape[1] // w)
+            data = torch.stack(list(data))
+        return gf2_matmul_words_plain(bm_bits, data, w)
+    if isinstance(data, (list, tuple)):
+        _check_rows(data, bm_bits.shape[1] // w)
+    # the module's attribute, looked up at the call, so that a caller
+    # that swaps it (chip_smoke's tap) sees these launches too
+    out = gf2_matmul_w8(bm_bits, virtual_chunks(data, wb), fragments)
+    return interleave_words(out, wb)

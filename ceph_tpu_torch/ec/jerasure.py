@@ -1,4 +1,4 @@
-"""The jerasure plugin: seven techniques, the w=8 matrix ones on K1.
+"""The jerasure plugin: seven techniques on K1 and K3.
 
 The port of ``ceph_tpu/ec/jerasure.py``, after
 src/erasure-code/jerasure/ErasureCodeJerasure.{h,cc}: the same technique
@@ -8,12 +8,12 @@ jerasure-per-chunk-alignment/engine) and the same get_chunk_size and
 alignment arithmetic (ErasureCodeJerasure.cc:80-104, :174-184,
 :278-292), with the generators of ``matrices.py``.
 
-``reed_sol_van`` and ``reed_sol_r6_op`` at w=8 run on kernel K1 on the
-code's device, or on the native GF(2^8) engine with ``engine=native``.
-w=16/32 and the five packet techniques parse and align as in the
-reference, but their layouts are not ported (``ROADMAP.md`` queue 1
-item 3): building one raises ``ErasureCodeError(-95)``; nothing falls
-back.
+``reed_sol_van`` and ``reed_sol_r6_op`` run on kernel K1 on the code's
+device (w=16/32 over the chunks' virtual chunks), or at w=8 on the
+native GF(2^8) engine with ``engine=native`` (-22 at w=16/32, as in
+the reference).  The five packet techniques run on kernel K3.  On the
+card K1 takes k*w/8 and m*w/8 up to 32 and K3 k, m up to 32 and w*k,
+w*m up to 256: a wider profile raises ``ValueError`` there.
 """
 
 from __future__ import annotations
@@ -28,8 +28,6 @@ from .engine import BitCode, Layout
 from .gfw import GFW
 from .interface import ErasureCode, ErasureCodeError, ErasureCodeProfile
 from .native_gf import ENGINES, NativeMatrixCode, engine_choice
-
-EOPNOTSUPP = -95
 
 LARGEST_VECTOR_WORDSIZE = 16  # ErasureCodeJerasure.cc:30
 
@@ -47,15 +45,6 @@ _PRIMES = {2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37, 41, 43, 47, 53,
 
 def is_prime(v: int) -> bool:
     return v in _PRIMES
-
-
-def layout(w: int, packetsize: int = 0) -> Layout:
-    """The port's ``Layout`` for a profile, or the reference's -95
-    (EOPNOTSUPP) for one that is not ported yet."""
-    try:
-        return Layout(w, packetsize)
-    except NotImplementedError as e:
-        raise ErasureCodeError(EOPNOTSUPP, str(e)) from None
 
 
 class SingleCode(ErasureCode):
@@ -78,14 +67,15 @@ class SingleCode(ErasureCode):
                 -22, f"engine={self.engine} must be one of "
                      f"{list(ENGINES)}")
 
-    def _matrix_code(self, coding_rows) -> None:
-        """The w=8 matrix code of ``coding_rows`` (m x k over GF(2^8))
-        on the profile's engine."""
-        if engine_choice(self.engine) == "native":
+    def _matrix_code(self, coding_rows, w: int = 8) -> None:
+        """The matrix code of ``coding_rows`` (m x k over GF(2^w)) on
+        the profile's engine: the native engine (w=8 only) or the bit
+        code in the word layout w."""
+        if w == 8 and engine_choice(self.engine) == "native":
             self._code = NativeMatrixCode(self.k, self.m, coding_rows)
         else:
-            cb = GFW(8).expand_bitmatrix(coding_rows)
-            self._code = BitCode(self.k, self.m, cb, layout(8),
+            cb = GFW(w).expand_bitmatrix(coding_rows)
+            self._code = BitCode(self.k, self.m, cb, Layout(w),
                                  device=self.device)
         self.device = self._code.device
 
@@ -191,8 +181,7 @@ class _MatrixTechnique(ErasureCodeJerasure):
                 raise ErasureCodeError(
                     -22, f"engine={self.engine} requires w=8 "
                          f"(byte layout), have w={self.w}")
-            layout(self.w)  # w=16/32: raises -95
-        self._matrix_code(coding_rows)
+        self._matrix_code(coding_rows, self.w)
 
 
 class ReedSolomonVandermonde(_MatrixTechnique):
@@ -261,7 +250,7 @@ class _PacketTechnique(ErasureCodeJerasure):
 
     def _make_bit_code(self, coding_bm: np.ndarray) -> None:
         self._code = BitCode(self.k, self.m, coding_bm,
-                             layout(self.w, self.packetsize),
+                             Layout(self.w, self.packetsize),
                              device=self.device)
         self.device = self._code.device
 

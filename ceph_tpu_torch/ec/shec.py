@@ -17,11 +17,13 @@ trading MDS-ness for cheaper single-chunk recovery.
   (c <= m <= k <= 12, k+m <= 20, :280-345).
 
 Its three products (encode, decode, the re-encode of lost parity) are
-(8r, 8c) bit matrices applied to byte rows: kernel K1's function, with
-the survivors read where they lie.  A decode system is dup x dup with
-dup <= k <= 12, inside K1's limits.  w=16/32 raise -95 (their layouts
-are not ported, ``ROADMAP.md`` queue 1 item 3); any other w falls back
-to 8, as the reference does.
+(w*r, w*c) bit matrices applied in the word layout w (8, 16 or 32): on
+kernel K1, with the survivors read where they lie (w=16/32 over their
+virtual chunks, ``gf2_kernels.gf2_matmul_words``).  A decode system is
+dup x dup with dup <= k <= 12; on the card K1 takes dup*w/8 up to 32,
+so a w=16 code up to k=12 and a w=32 code up to k=8 (a wider one raises
+``ValueError`` there).  Any other w falls back to 8, as the reference
+does.
 """
 
 from __future__ import annotations
@@ -31,12 +33,11 @@ from typing import Dict, List, Optional, Set, Tuple
 import numpy as np
 import torch
 
-from . import gf2_kernels
 from . import matrices as M
-from .engine import DECODE_CACHE_SIZE, BitCode, device_matrix
+from .engine import DECODE_CACHE_SIZE, BitCode, apply, device_matrix
 from .gfw import GFW
 from .interface import ErasureCode, ErasureCodeError, ErasureCodeProfile
-from .jerasure import layout
+from .layout import Layout
 
 DEFAULT_K = 4
 DEFAULT_M = 3
@@ -131,6 +132,7 @@ class ErasureCodeShec(ErasureCode):
         self.matrix: List[List[int]] = []
         self._gf: Optional[GFW] = None
         self._code: Optional[BitCode] = None
+        self._layout: Optional[Layout] = None
         self._dec_cache: Dict[Tuple, tuple] = {}
         # bit matrices of decode systems and parity re-encodes on the
         # device, with K1's fragments, by the rows they take
@@ -169,11 +171,11 @@ class ErasureCodeShec(ErasureCode):
     def prepare(self) -> None:
         self.matrix = shec_coding_matrix(self.k, self.m, self.c,
                                          self.w, self.technique)
-        layout(self.w)  # w=16/32: raises -95
         self._gf = GFW(self.w)
+        self._layout = Layout(self.w)
         self._code = BitCode(self.k, self.m,
                              self._gf.expand_bitmatrix(self.matrix),
-                             device=self.device)
+                             self._layout, device=self.device)
         self.device = self._code.device
         self._dec_cache.clear()
         self._bm_cache.clear()
@@ -287,17 +289,19 @@ class ErasureCodeShec(ErasureCode):
     # -- data path ----------------------------------------------------
     def _product(self, key: Tuple, gf_rows: List[List[int]],
                  rows: List[torch.Tensor]) -> torch.Tensor:
-        """The GF(2^8) rows ``gf_rows`` applied to the byte rows
-        ``rows`` (read where they lie) by K1: u8[len(gf_rows), L]."""
+        """The GF(2^w) rows ``gf_rows`` applied to the chunks ``rows``
+        (read where they lie) by K1 in the word layout w:
+        u8[len(gf_rows), L]."""
         mats = self._bm_cache.get(key)
         if mats is None:
             mats = device_matrix(self._gf.expand_bitmatrix(gf_rows),
-                                 self.device)
+                                 self.device, self._layout)
             if len(self._bm_cache) >= DECODE_CACHE_SIZE:
                 self._bm_cache.pop(next(iter(self._bm_cache)))
             self._bm_cache[key] = mats
         bm, frag = mats
-        return gf2_kernels.gf2_matmul_w8(bm, rows, frag)
+        self._layout.check(rows[0].shape[-1])
+        return apply(self._layout, bm, frag, rows)
 
     def encode_chunks(self, want_to_encode: Set[int],
                       chunks: Dict[int, torch.Tensor]) -> None:

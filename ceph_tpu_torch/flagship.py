@@ -3,18 +3,28 @@
 The port of ``__graft_entry__.py:_flagship``/``entry()``: one step maps
 a batch of PGs through a CRUSH rule (kernel K2) and erasure-codes a
 batch of stripes (kernel K1), the two cores every other module feeds or
-consumes.
+consumes.  ``spec_cross_check`` is the check ``_dryrun_on`` makes
+beside it: the speculative lowering of ``map_big10k`` rule 0 equals
+the general walk (K2).
 """
 
 from __future__ import annotations
 
+import json
+import pathlib
+
+import numpy as np
 import torch
 
 from .crush.builder import sample_cluster_map
 from .crush.map import CrushMap
-from .crush.mapper import build_rule_fn
+from .crush.mapper import BatchedMapper, build_rule_fn
+from .crush.mapper_spec import SpeculativeMapper
 from .device import resolve_device
 from .ec.rs import RSCode
+
+BIG10K = pathlib.Path(__file__).resolve().parents[1] / "tests" / "golden" \
+    / "map_big10k.json"
 
 
 class Flagship:
@@ -58,3 +68,27 @@ def flagship(cmap: CrushMap = None, ruleno: int = 0, result_max: int = 3,
     """Build the flagship step (by default on the 48-OSD sample map, as
     ``__graft_entry__._flagship`` does)."""
     return Flagship(cmap, ruleno, result_max, device)
+
+
+def spec_cross_check(n_pgs: int = 65536, k_tries: int = 1, device="cuda"):
+    """``__graft_entry__._dryrun_on``'s cross-check: ``map_big10k``'s
+    first golden case (rule 0, numrep 3, its weights) over PGs 0 ..
+    n_pgs - 1 through the general walk (``BatchedMapper``: K2 on the
+    card) and the speculative mapper; any difference raises.  Returns
+    (res, lens, the speculative mapper, whose ``rounds`` and ``syncs``
+    count its call)."""
+    dev = resolve_device(device)
+    with open(BIG10K) as f:
+        d = json.load(f)
+    cmap = CrushMap.from_dict(d["map"])
+    case = d["cases"][0]
+    weight = np.asarray(case["weight"], np.uint32)
+    xs = np.arange(n_pgs, dtype=np.uint32)
+    res, lens = BatchedMapper(cmap, device=dev).map_batch(
+        case["ruleno"], xs, case["numrep"], weight)
+    spec = SpeculativeMapper(cmap, k_tries=k_tries, device=dev)
+    sres, slens = spec.map_batch(case["ruleno"], xs, case["numrep"], weight)
+    if not (torch.equal(res, sres) and torch.equal(lens, slens)):
+        raise AssertionError("speculative mapper diverges from the general "
+                             "mapper")
+    return res, lens, spec

@@ -10,8 +10,8 @@ one erased.  Entries live under ``tests/corpus/<slug>/``:
 
 The codes run on ``--device`` (the card by default; cpu for the
 kernels' plain versions); chunks are copied back only to be compared
-with or written to files.  An entry whose profile the port cannot build
-yet (a packet layout) fails with the plugin's error.
+with or written to files.  An entry whose code cannot be built fails
+with the plugin's error.
 
 Usage:
   python -m ceph_tpu_torch.tools.ec_non_regression --create \\

@@ -84,8 +84,8 @@ Phases (any failure raises and the script exits non-zero):
    4 MiB object 200 times, decode of 200 random single erasures and of
    every set of m erasures (c for SHEC); ``encode_batched`` of 64 x 4
    MiB objects (isa 8+3); ``ec_non_regression --check`` of the five w=8
-   corpus directories (and the packet one, which must fail as not
-   ported).  Then, with the kernel's calls tapped and not counted: every
+   corpus directories.  Then, with the kernel's calls tapped and not
+   counted: every
    chunk of those encodes and decodes equal to the same profile on the
    native engine (SHEC, which has none, on the CPU) and to the object,
    and the first 64 KiB columns of every K1 product equal to its plain
@@ -94,6 +94,27 @@ Phases (any failure raises and the script exits non-zero):
    apart.  Last, each plugin's ``create_rule`` (and an LRC rule with
    locality and an isa rule on a device class) on ``map_big10k``, 65,536
    PGs through K2 equal to the native engine.
+9. The other EC layouts and the speculative mapper.  With K1's and K3's
+   counts at 0: ``ec_benchmark --verify`` on the card (encode and random
+   single-erasure decodes of a 4 MiB object, 50 calls each) for
+   ``ceph_tpu``'s ten-point jerasure grid (w=8, w=16/32 words on K1 over
+   virtual chunks, the five packet techniques on K3), SHEC at w=16 and
+   w=32, an LRC layer and Clay's sub-codes on cauchy_good, and
+   ``ec_non_regression --check`` of the packet corpus directory.  Then,
+   with the kernels' calls tapped and not counted: each profile on the
+   card equal to the same profile on the CPU for a 64 KiB object (every
+   erasure of up to m chunks on one profile a layout: w=16, w=32,
+   packets, SHEC w=16), a 4 MiB object encoded and decoded back, every K3
+   product and each K1 product's first columns equal to the plain
+   version; K3 at each vector width it is built for (16, 8, 4, 2, 1
+   bytes: batched stripes, packet size 6, rows at odd offsets) against
+   its plain version; each call's launches replayed in a CUDA graph; K3
+   alone at a 4 MiB object (cauchy_good k=4 m=3, packet sizes 8 and 2048, encode
+   and decode) and the word route's copies and K1 apart.  Last, with
+   K2's count at 0, ``flagship.spec_cross_check``: the speculative
+   mapper on ``map_big10k`` rule 0 over 65,536 PGs equal to K2 and to
+   the golden rows; K=8, rule 1 and the tie map too; both timed, with
+   the speculative mapper's rounds and host syncs.
 
 The scalar oracles run in worker processes (spawned, stopped at the
 end) beside the card's work.
@@ -106,12 +127,13 @@ operations over its peak rate for their type (published H100 SXM
 figures; K1's 1-bit products are counted at the int8 rate, which is
 lower).  It prints
 the card's name and power limit, one line per kernel, one ``kernels``
-JSON line (K1's launches: phases 4 and 8; K2's: phase 4's, one a
-``map_all`` call in phases 5 and 6, one a sweep in phase 7 and one a
-rule in phase 8), K2's variants, the
+JSON line (K1's launches: phases 4, 8 and 9; K2's: phase 4's, one a
+``map_all`` call in phases 5 and 6, one a sweep in phase 7, one a rule
+in phase 8 and phase 9's cross-check; K3's: phase 9), K2's variants, the
 flagship rates, the pipeline's rates, the balancer's records and time
 split, crushtool's record, one ``ec_plugins`` line per profile and
-workload, and last the contract line
+workload, phase 9's ``layouts``, ``k3``, ``words`` and ``spec`` lines,
+and last the contract line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the rest of the repository beside it, it exits non-zero and prints no
 result.
@@ -1861,12 +1883,9 @@ def phase_ec_plugins(dev, workdir, card):
     torch.cuda.synchronize()
     batch_s = time.perf_counter() - t0
     corpus_ok = os.path.join(workdir, "corpus_w8")
-    corpus_packet = os.path.join(workdir, "corpus_packet")
-    for base, names in ((corpus_ok, CORPUS_W8),
-                        (corpus_packet, (CORPUS_PACKET,))):
-        for name in names:
-            shutil.copytree(os.path.join(REPO, "tests", "corpus", name),
-                            os.path.join(base, name))
+    for name in CORPUS_W8:
+        shutil.copytree(os.path.join(REPO, "tests", "corpus", name),
+                        os.path.join(corpus_ok, name))
     rc, text, err = run_tool_err(ec_non_regression, [
         "--check", "--device", dev.type, "--base", corpus_ok])
     if rc != 0 or "checked 5 corpus entries: OK" not in text:
@@ -1878,12 +1897,6 @@ def phase_ec_plugins(dev, workdir, card):
                              "plugins' path")
     log(f"ec corpus: ec_non_regression --check --device {dev.type} of "
         f"{len(CORPUS_W8)} w=8 directories: {text.strip()}")
-    rc, text, err = run_tool_err(ec_non_regression, [
-        "--check", "--device", dev.type, "--base", corpus_packet])
-    if rc != 1 or "not ported yet" not in err:
-        raise AssertionError(f"ec_non_regression of the packet directory "
-                             f"must fail as not ported: {rc} {err}")
-    log(f"ec corpus packet directory: {err.strip()}")
 
     # checks, with K1's count set aside: every profile's bytes against
     # the native engine (SHEC, which has none, against the CPU), each
@@ -1982,6 +1995,507 @@ def phase_ec_plugins(dev, workdir, card):
     log(f"ec plugins phase: {out['phase_s']:.1f} s")
     return out, k1_launches, k2_launches
 
+# -- phase 9 ----------------------------------------------------------
+
+LAYOUT_ITERS = 50          # calls of each ec_benchmark run
+LAYOUT_SMALL = 64 << 10    # the object of the checks against the CPU
+K3_SETS = 16               # input sets K3's timing cycles through (> L2)
+# (plugin, profile, decode every erasure of up to m chunks against the
+# CPU: one profile a layout): ceph_tpu's jerasure grid
+# (tests/test_jerasure.py), SHEC's wide words, an LRC layer and Clay's
+# sub-codes on a packet technique
+LAYOUT_PROFILES = (
+    ("jerasure", {"technique": "reed_sol_van", "k": "2", "m": "2",
+                  "w": "8"}, False),
+    ("jerasure", {"technique": "reed_sol_van", "k": "3", "m": "2",
+                  "w": "16"}, True),
+    ("jerasure", {"technique": "reed_sol_van", "k": "4", "m": "3",
+                  "w": "32"}, True),
+    ("jerasure", {"technique": "reed_sol_r6_op", "k": "4", "m": "2",
+                  "w": "8"}, False),
+    ("jerasure", {"technique": "cauchy_orig", "k": "2", "m": "2", "w": "4",
+                  "packetsize": "8"}, False),
+    ("jerasure", {"technique": "cauchy_orig", "k": "4", "m": "3", "w": "8",
+                  "packetsize": "8"}, False),
+    ("jerasure", {"technique": "cauchy_good", "k": "4", "m": "3", "w": "8",
+                  "packetsize": "8"}, True),
+    ("jerasure", {"technique": "liberation", "k": "2", "m": "2", "w": "7",
+                  "packetsize": "8"}, False),
+    ("jerasure", {"technique": "blaum_roth", "k": "2", "m": "2", "w": "6",
+                  "packetsize": "8"}, False),
+    ("jerasure", {"technique": "liber8tion", "k": "2", "m": "2", "w": "8",
+                  "packetsize": "8"}, False),
+    ("shec", {"k": "4", "m": "3", "c": "2", "w": "16"}, True),
+    ("shec", {"k": "4", "m": "3", "c": "2", "w": "32"}, False),
+    ("lrc", {"mapping": "DD_", "layers": json.dumps(
+        [["DDc", "technique=cauchy_good packetsize=8"]])}, False),
+    ("clay", {"k": "4", "m": "2", "technique": "cauchy_good"}, False),
+)
+
+
+def layout_label(plugin, profile):
+    return " ".join([plugin] + [f"{k}={v}" for k, v in profile.items()
+                                if k != "layers"])
+
+
+class K3Tap:
+    """Replaces ``gf2_packet.gf2_packet`` (which the EC engine calls
+    through its module) while open.  ``check``: every product, all its
+    columns, is held to the plain version on the same device.
+    ``record``: each launch's arguments are kept, to be replayed.  The
+    launches made meanwhile add to the tap's own count, never to the
+    kernel's."""
+
+    def __init__(self, check=False, record=False):
+        self.check, self.record = check, record
+        self.calls, self.products = [], 0
+
+    def __enter__(self):
+        import torch
+
+        from ceph_tpu_torch.ec import gf2_packet
+
+        self.mod, self.real = gf2_packet, gf2_packet.gf2_packet
+        real, plain = self.real, gf2_packet.gf2_packet_plain
+
+        def tap(bm, data, w, ps, masks=None):
+            out = real(bm, data, w, ps, masks)
+            if self.record:
+                self.calls.append((bm, data, w, ps, masks))
+            if self.check:
+                rows = torch.stack(list(data)) \
+                    if isinstance(data, (list, tuple)) else data
+                if max_abs_err(out, plain(bm, rows, w, ps)):
+                    raise AssertionError(
+                        f"K3 differs from its plain version on a plugin's "
+                        f"product {tuple(bm.shape)} w={w} packetsize={ps}")
+                self.products += 1
+            return out
+
+        tap.launches = 0
+        self.mod.gf2_packet = tap
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.gf2_packet = self.real
+        return False
+
+    def replay(self, i=0):
+        for call in self.calls:
+            self.real(*call)
+
+    def bound_ms(self):
+        """The recorded launches' byte bound: each input row read once,
+        each output row written once, the masks read once."""
+        nbytes = 0
+        for bm, data, w, _, masks in self.calls:
+            k, m = bm.shape[1] // w, bm.shape[0] // w
+            cols = data[0].numel() if isinstance(data, (list, tuple)) \
+                else data.numel() // k
+            nbytes += (k + m) * cols + (0 if masks is None
+                                        else 4 * masks.numel())
+        return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def layout_erasures(code, profile, every):
+    """The erasure sets a check decodes: every set of up to m chunks, or
+    every single one and the first set of m (c for SHEC)."""
+    n = code.get_chunk_count()
+    m = n - code.get_data_chunk_count()
+    if every:
+        return [e for c in range(1, m + 1)
+                for e in itertools.combinations(range(n), c)]
+    most = int(profile.get("c", m))
+    return [(i,) for i in range(n)] + [tuple(range(most))]
+
+
+def layout_check(code, cpu, profile, every, small, raw, label):
+    """The profile on the card against the same profile on the CPU (the
+    plain versions) on ``small``: every chunk of an encode and of each
+    decode, the same errors; then ``raw`` (4 MiB) encoded and decoded
+    with its first m chunks (c for SHEC) lost, the object back.  Every
+    K1 product's first columns and every K3 product are held to the
+    plain version on the card meanwhile.  Returns (decodes, K1 products,
+    K3 products)."""
+    import torch
+
+    from ceph_tpu_torch.ec.interface import ErasureCodeError
+
+    n = code.get_chunk_count()
+    decodes = 0
+    with K1Tap(check=True) as t1, K3Tap(check=True) as t3:
+        card = code.encode(range(n), small)
+        ref = cpu.encode(range(n), small)
+        for i in range(n):
+            if not torch.equal(card[i].cpu(), ref[i]):
+                raise AssertionError(f"{label}: chunk {i} differs from the "
+                                     f"CPU's")
+        for erased in layout_erasures(code, profile, every):
+            avail = {i: c for i, c in card.items() if i not in erased}
+            # a set the code cannot decode (SHEC) must fail alike
+            try:
+                got = code.decode(set(range(n)), avail)
+            except ErasureCodeError as e:
+                got = e.errno
+            try:
+                exp = cpu.decode(set(range(n)), {i: ref[i] for i in avail})
+            except ErasureCodeError as e:
+                exp = e.errno
+            if isinstance(got, int) or isinstance(exp, int):
+                if got != exp:
+                    raise AssertionError(f"{label}: decode of {erased}: "
+                                         f"{got} on the card, {exp} on "
+                                         f"the CPU")
+                continue
+            for i in range(n):
+                if not torch.equal(got[i].cpu(), exp[i]):
+                    raise AssertionError(f"{label}: decode of {erased} "
+                                         f"differs from the CPU's")
+            decodes += 1
+        card = code.encode(range(n), raw)
+        most = int(profile.get("c", n - code.get_data_chunk_count()))
+        avail = {i: c for i, c in card.items() if i >= most}
+        back = code.decode_concat(avail).cpu().numpy().tobytes()
+        if back[:len(raw)] != raw:
+            raise AssertionError(f"{label}: decode of the {len(raw)}-byte "
+                                 f"object did not give it back")
+    return decodes, t1.products, t3.products
+
+
+def layout_call_times(code, raw, decode):
+    """One encode, or one decode losing chunk 0: its K1 and K3 launches
+    replayed in a CUDA graph (device ms a call), their counts and byte
+    bound."""
+    n = code.get_chunk_count()
+    chunks = code.encode(range(n), raw)
+    want = {code.chunk_index(i) for i in range(code.get_data_chunk_count())}
+    with K1Tap(record=True) as t1, K3Tap(record=True) as t3:
+        if decode:
+            code.decode(want, {i: c for i, c in chunks.items() if i != 0})
+        else:
+            code.encode(range(n), raw)
+
+    def replay(i):
+        t1.replay()
+        t3.replay()
+
+    k_ms = cuda_graph_ms(replay, 1) if t1.calls or t3.calls else 0.0
+    return k_ms, len(t1.calls), len(t3.calls), t1.bound_ms() + t3.bound_ms()
+
+
+def check_k3_widths(dev):
+    """K3 at each vector width it is built for, against the plain version
+    on a random bit matrix (w=8, k=4, m=3): 16 and 8 bytes (4 stripes of
+    [4, 1 MiB] at packet sizes 2048 and 8), 4 (one stripe), 2 (packet
+    size 6) and 1 (rows at odd offsets of one buffer).  Returns the
+    widths run."""
+    import torch
+
+    from ceph_tpu_torch.ec.gf2_packet import (gf2_packet, gf2_packet_plain,
+                                              packet_masks, vec_bytes)
+
+    w, k, m = 8, 4, 3
+    rng = np.random.default_rng(11)
+    bm = torch.from_numpy(rng.integers(0, 2, (w * m, w * k),
+                                       dtype=np.uint8)).to(dev)
+    masks = packet_masks(bm, w)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    widths = []
+    for want, ps, B, L, odd in ((16, 2048, 4, 1 << 20, False),
+                                (8, 8, 4, 1 << 20, False),
+                                (4, 8, 1, 1 << 20, False),
+                                (2, 6, 1, 48 * 1000, False),
+                                (1, 8, 1, 64 * 1000, True)):
+        data = torch.randint(0, 256, (B, k, L), dtype=torch.uint8,
+                             device=dev, generator=gen)
+        arg = data if B > 1 else data[0]
+        addr = data.data_ptr() | k * L
+        if odd:
+            buf = torch.zeros(k * (L + 1) + 1, dtype=torch.uint8, device=dev)
+            arg, addr = [], 0
+            for c in range(k):
+                off = 1 + c * (L + 1)
+                buf[off:off + L] = data[0, c]
+                arg.append(buf[off:off + L])
+                addr |= arg[-1].data_ptr()
+        got_w = vec_bytes(ps, addr, B, L, w)
+        if got_w != want:
+            raise AssertionError(f"K3 took {got_w}-byte vectors where "
+                                 f"{want} were meant")
+        exp = gf2_packet_plain(bm, data if B > 1 else data[0], w, ps)
+        if max_abs_err(gf2_packet(bm, arg, w, ps, masks), exp):
+            raise AssertionError(f"K3 differs from plain at {want}-byte "
+                                 f"vectors")
+        widths.append(got_w)
+    del data, exp
+    return widths
+
+
+def time_k3(dev, profile):
+    """K3 alone at a 4 MiB object's chunks of ``profile``: encode
+    [k, L] cycling K3_SETS input sets, and the decode of its first two
+    chunks through the inverse with the survivors as separate rows, each
+    held to the plain version first."""
+    import torch
+
+    from ceph_tpu_torch.ec.gf2_packet import (gf2_packet, gf2_packet_plain,
+                                              vec_bytes)
+    from ceph_tpu_torch.ec.registry import factory
+
+    bc = factory("jerasure", profile, device=dev)._code
+    k, m, w, ps = bc.k, bc.m, bc.layout.w, bc.layout.packetsize
+    L = factory("jerasure", profile, device="cpu").get_chunk_size(EC_OBJECT)
+    bm, masks = bc._enc_dev, bc._enc_frag
+    gen = torch.Generator(device=dev).manual_seed(9)
+    sets = [torch.randint(0, 256, (k, L), dtype=torch.uint8, device=dev,
+                          generator=gen) for _ in range(K3_SETS)]
+    for d in sets[:2]:
+        if max_abs_err(gf2_packet(bm, d, w, ps, masks),
+                       gf2_packet_plain(bm, d, w, ps)):
+            raise AssertionError(f"K3 differs from plain on [{k}, {L}]")
+    rec = {"w": w, "packetsize": ps, "k": k, "m": m, "L": L,
+           "vec_bytes": vec_bytes(ps, sets[0].data_ptr() | k * L, 1, L, w)}
+    rec["ms"] = cuda_ms(lambda i: gf2_packet(bm, sets[i % K3_SETS], w, ps,
+                                             masks), 32, warmup=2)
+    rec["graph_ms"] = cuda_graph_ms(
+        lambda i: gf2_packet(bm, sets[i % K3_SETS], w, ps, masks), K3_SETS)
+    rec["plain_ms"] = cuda_ms(lambda i: gf2_packet_plain(
+        bm, sets[i % K3_SETS], w, ps), 3)
+    mask_bytes = 0 if masks is None else 4 * masks.numel()
+    rec["bound_ms"] = ((k + m) * L + mask_bytes) / HBM_BYTES_PER_S * 1e3
+    full = torch.cat([sets[0], gf2_packet(bm, sets[0], w, ps, masks)])
+    inv, imasks = bc._decode_mats(tuple(range(2, k + 2)))
+    rows = [full[i].clone() for i in range(2, k + 2)]
+    got = gf2_packet(inv, rows, w, ps, imasks)
+    if max_abs_err(got, gf2_packet_plain(inv, torch.stack(rows), w, ps)) \
+            or not torch.equal(got, sets[0]):
+        raise AssertionError("K3 decode differs from plain or did not give "
+                             "the data back")
+    rec["decode_ms"] = cuda_ms(lambda i: gf2_packet(inv, rows, w, ps,
+                                                    imasks), 32, warmup=2)
+    rec["decode_graph_ms"] = cuda_graph_ms(
+        lambda i: gf2_packet(inv, rows, w, ps, imasks), 16)
+    rec["decode_bound_ms"] = (2 * k * L + mask_bytes) / HBM_BYTES_PER_S * 1e3
+    del sets, full, rows
+    torch.cuda.empty_cache()
+    return rec
+
+
+def time_words(dev, profile):
+    """The word route at a 4 MiB object's chunks of ``profile``: the
+    de-interleave copy, K1 over the virtual chunks and the interleave
+    copy apart, and the whole ``gf2_matmul_words`` call, held to the
+    plain version first."""
+    import torch
+
+    from ceph_tpu_torch.ec.gf2_kernels import (gf2_matmul_w8,
+                                               gf2_matmul_words,
+                                               gf2_matmul_words_plain,
+                                               interleave_words,
+                                               virtual_chunks)
+    from ceph_tpu_torch.ec.registry import factory
+
+    bc = factory("jerasure", profile, device=dev)._code
+    k, m, w = bc.k, bc.m, bc.layout.w
+    wb = w // 8
+    L = factory("jerasure", profile, device="cpu").get_chunk_size(EC_OBJECT)
+    bm, frag = bc._enc_dev, bc._enc_frag
+    gen = torch.Generator(device=dev).manual_seed(10)
+    data = torch.randint(0, 256, (k, L), dtype=torch.uint8, device=dev,
+                         generator=gen)
+    want = gf2_matmul_words_plain(bm, data, w)
+    if max_abs_err(gf2_matmul_words(bm, data, w, frag), want):
+        raise AssertionError(f"the w={w} route differs from plain")
+    virt = virtual_chunks(data, wb)
+    outv = gf2_matmul_w8(bm, virt, frag)
+    rec = {"w": w, "k": k, "m": m, "L": L,
+           "deinterleave_ms": cuda_ms(lambda i: virtual_chunks(data, wb), 20),
+           "k1_ms": cuda_ms(lambda i: gf2_matmul_w8(bm, virt, frag), 20),
+           "k1_graph_ms": cuda_graph_ms(
+               lambda i: gf2_matmul_w8(bm, virt, frag), 20),
+           "interleave_ms": cuda_ms(lambda i: interleave_words(outv, wb), 20),
+           "ms": cuda_ms(lambda i: gf2_matmul_words(bm, data, w, frag), 20),
+           "plain_ms": cuda_ms(lambda i: gf2_matmul_words_plain(bm, data, w),
+                               3),
+           "bound_ms": (k + m) * L / HBM_BYTES_PER_S * 1e3}
+    return rec
+
+
+def phase_layouts(dev, workdir, card):
+    """The w=16/32 word layouts on K1 and the packet layouts on K3: the
+    plugins through ec_benchmark and the packet corpus directory through
+    ec_non_regression (the main path, with K1's and K3's counts at 0),
+    then the checks against the CPU and the plain versions, and the
+    times.  Returns (record, K1 launches, K3 launches, K3's kernel
+    entry)."""
+    import shutil
+
+    import torch
+
+    from ceph_tpu_torch.ec import gf2_kernels, gf2_packet
+    from ceph_tpu_torch.ec.registry import factory
+    from ceph_tpu_torch.tools import ec_benchmark, ec_non_regression
+
+    t_phase = time.perf_counter()
+    out = {"card": card, "runs": []}
+    raw = ec_benchmark.payload(EC_OBJECT)
+    small = np.random.default_rng(9).integers(
+        0, 256, LAYOUT_SMALL, dtype=np.uint8).tobytes()
+
+    # the main path, with K1's and K3's counts at 0
+    gf2_kernels.gf2_matmul_w8.launches = 0
+    gf2_packet.gf2_packet.launches = 0
+    for plugin, profile, _ in LAYOUT_PROFILES:
+        label = layout_label(plugin, profile)
+        for wl, flags in (("encode", {}), ("decode_1_random",
+                                           {"erasures": 1})):
+            gbps, secs = ec_tool_rate(ec_benchmark, ec_bench_args(
+                plugin, profile, wl.split("_")[0], dev.type,
+                iters=LAYOUT_ITERS, **flags), f"{label} {wl}")
+            out["runs"].append({"profile": label, "workload": wl,
+                                "gbps": gbps, "calls": LAYOUT_ITERS,
+                                "ms_per_call": secs / LAYOUT_ITERS * 1e3})
+    corpus = os.path.join(workdir, "corpus_packet")
+    shutil.copytree(os.path.join(REPO, "tests", "corpus", CORPUS_PACKET),
+                    os.path.join(corpus, CORPUS_PACKET))
+    rc, text, err = run_tool_err(ec_non_regression, [
+        "--check", "--device", dev.type, "--base", corpus])
+    if rc != 0 or "checked 1 corpus entries: OK" not in text:
+        raise AssertionError(f"ec_non_regression --check of the packet "
+                             f"directory: {rc} {text} {err}")
+    k1_launches = gf2_kernels.gf2_matmul_w8.launches
+    k3_launches = gf2_packet.gf2_packet.launches
+    if k1_launches < 1 or k3_launches < 1:
+        raise AssertionError(f"the layouts' path launched K1 {k1_launches} "
+                             f"and K3 {k3_launches} times")
+    log(f"layouts corpus: ec_non_regression --check --device {dev.type} "
+        f"of {CORPUS_PACKET}: {text.strip()}")
+
+    # checks, with the counts set aside
+    for plugin, profile, every in LAYOUT_PROFILES:
+        label = layout_label(plugin, profile)
+        code = factory(plugin, profile, device=dev)
+        cpu = factory(plugin, profile, device="cpu")
+        decodes, p1, p3 = layout_check(code, cpu, profile, every, small, raw,
+                                       label)
+        log(f"layouts check {label}: encode and {decodes} decodes of a "
+            f"{LAYOUT_SMALL}-byte object equal to the CPU's"
+            f"{' (every erasure of up to m chunks)' if every else ''}, the "
+            f"{EC_OBJECT}-byte object back; {p1} K1 and {p3} K3 products "
+            f"equal to the plain versions")
+        for rec in out["runs"]:
+            if rec["profile"] == label:
+                (rec["kernel_ms"], rec["k1_launches_per_call"],
+                 rec["k3_launches_per_call"], rec["kernel_bound_ms"]) = \
+                    layout_call_times(code, raw, rec["workload"] != "encode")
+                log("layouts: " + json.dumps({"card": card, **rec}))
+
+    widths = check_k3_widths(dev)
+    log(f"k3 check: equal to the plain version at {widths}-byte vectors "
+        f"(stripes in place, one stripe, rows at odd offsets)")
+
+    # K3 alone, and the word route's parts
+    corpus_profile = {"technique": "cauchy_good", "k": "4", "m": "3",
+                      "w": "8", "packetsize": "8"}
+    k3 = time_k3(dev, corpus_profile)
+    k3_2048 = time_k3(dev, {"technique": "cauchy_good", "k": "4",
+                            "m": "3"})
+    log("k3: " + json.dumps({"card": card, **k3}))
+    log("k3 packetsize 2048: " + json.dumps({"card": card, **k3_2048}))
+    out["words"] = []
+    for prof in ({"technique": "reed_sol_van", "k": "4", "m": "2",
+                  "w": "16"},
+                 {"technique": "reed_sol_van", "k": "4", "m": "3",
+                  "w": "32"}):
+        rec = time_words(dev, prof)
+        out["words"].append(rec)
+        log("words: " + json.dumps({"card": card, **rec}))
+    torch.cuda.empty_cache()
+    entry = {"name": "gf2_packet", "route": "cuda",
+             "source": "ceph_tpu_torch/csrc/gf2_packet.cu",
+             "replaces": "ceph_tpu/ec/engine.py:124",
+             "launches": k3_launches, "max_abs_err": 0,
+             "ms": k3["ms"], "graph_ms": k3["graph_ms"],
+             "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+             "bound_by": "bytes", "library_ms": None,
+             "shape": f"encode [{k3['k']}, {k3['L']}] -> [{k3['m']}, "
+                      f"{k3['L']}] u8, w={k3['w']} packetsize="
+                      f"{k3['packetsize']} ({k3['vec_bytes']}-byte "
+                      f"vectors); decode through the inverse: kernel_ms="
+                      f"{k3['decode_ms']:.4f} graph_ms="
+                      f"{k3['decode_graph_ms']:.4f} bound_ms="
+                      f"{k3['decode_bound_ms']:.4f}; packetsize 2048: "
+                      f"kernel_ms={k3_2048['ms']:.4f} graph_ms="
+                      f"{k3_2048['graph_ms']:.4f} bound_ms="
+                      f"{k3_2048['bound_ms']:.4f}"}
+    out["k3"], out["k3_packetsize_2048"] = k3, k3_2048
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"layouts phase: {out['phase_s']:.1f} s")
+    return out, k1_launches, k3_launches, entry
+
+
+def phase_spec(dev):
+    """The speculative mapper on ``map_big10k``: the flagship's
+    cross-check (rule 0 over 65,536 PGs, K=1, against K2; K2's count at
+    0), the golden rows, K=8, rule 1 (indep, numrep 11) and the tie map
+    against K2, then both timed.  Returns (record, K2 launches)."""
+    import torch
+
+    from ceph_tpu_torch.crush import mapper
+    from ceph_tpu_torch.crush.map_arrays import as_i32
+    from ceph_tpu_torch.crush.mapper import BatchedMapper
+    from ceph_tpu_torch.crush.mapper_spec import SpeculativeMapper
+    from ceph_tpu_torch.flagship import spec_cross_check
+
+    t_phase = time.perf_counter()
+    cmap, cases = load_map("map_big10k")
+    mapper.crush_rule_batched.launches = 0
+    res, lens, spec1 = spec_cross_check(PGS, k_tries=1, device=dev)
+    k2_launches = mapper.crush_rule_batched.launches
+    if k2_launches != 1:
+        raise AssertionError(f"the cross-check launched K2 {k2_launches} "
+                             f"times")
+    out = {"pgs": PGS, "k1_rounds": spec1.rounds, "k1_syncs": spec1.syncs}
+    golden_check(cases[0], res, lens, "speculative map_big10k rule 0")
+    bm = BatchedMapper(cmap, device=dev)
+    xs = torch.arange(PGS, dtype=torch.int32, device=dev)
+    checks = []
+    for label, m, ruleno, case in (
+            ("rule 0 K=8", SpeculativeMapper(cmap, k_tries=8, device=dev),
+             0, cases[0]),
+            ("rule 1 K=8", SpeculativeMapper(cmap, k_tries=8, device=dev),
+             1, cases[1]),
+            ("tie map rule 0 K=8",
+             SpeculativeMapper(tie_map(cmap), k_tries=8, device=dev), 0,
+             None)):
+        weight = as_i32(np.asarray(cases[0 if case is None else ruleno]
+                                   ["weight"], np.uint32), dev)
+        nrep = 3 if ruleno == 0 else 11
+        ref = bm if case is not None else BatchedMapper(m.cmap, device=dev)
+        want, wlens = ref.map_batch(ruleno, xs, nrep, weight)
+        got, glens = m.map_batch(ruleno, xs, nrep, weight)
+        if not (torch.equal(got, want) and torch.equal(glens, wlens)):
+            raise AssertionError(f"speculative {label} differs from K2")
+        if case is not None:
+            golden_check(case, got, glens, f"speculative {label}")
+        checks.append(f"{label} ({m.rounds} rounds, {m.syncs} syncs)")
+    log(f"spec check: map_big10k over {PGS} PGs equal to K2: rule 0 K=1 "
+        f"({spec1.rounds} rounds, {spec1.syncs} syncs), "
+        + ", ".join(checks) + "; rules 0 and 1 equal to the golden rows")
+    w0 = as_i32(np.asarray(cases[0]["weight"], np.uint32), dev)
+    out["k2_ms"] = cuda_ms(lambda i: bm.map_batch(0, xs, 3, w0), 10)
+    for k_tries in (1, 8):
+        sm = SpeculativeMapper(cmap, k_tries=k_tries, device=dev)
+        out[f"spec_k{k_tries}_ms"] = cuda_ms(
+            lambda i: sm.map_batch(0, xs, 3, w0), 3)
+        out[f"spec_k{k_tries}_rounds"] = sm.rounds
+        out[f"spec_k{k_tries}_syncs"] = sm.syncs
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("spec: " + json.dumps(out))
+    return out, k2_launches
+
 
 def main():
     import tempfile
@@ -2061,9 +2575,19 @@ def main():
         k1["launches"] += ec_k1
         k2["launches"] += ec_k2
         ec["k1_launches"], ec["k2_launches"] = ec_k1, ec_k2
+
+        # the w=16/32 and packet layouts: K1's and K3's counts at 0
+        # before their main path; the speculative mapper: K2's before
+        # the cross-check
+        with tempfile.TemporaryDirectory() as workdir:
+            lay, lay_k1, lay_k3, k3 = phase_layouts(dev, workdir, card)
+        k1["launches"] += lay_k1
+        lay["k1_launches"], lay["k3_launches"] = lay_k1, lay_k3
+        spec, spec_k2 = phase_spec(dev)
+        k2["launches"] += spec_k2
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
-    for k in (k1, k2):
+    for k in (k1, k2, k3):
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was not launched on the "
                                  f"main path")
@@ -2074,7 +2598,7 @@ def main():
             "max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     log(json.dumps({"kernels": [{key: k[key] for key in keys}
-                                for k in (k1, k2)]}))
+                                for k in (k1, k2, k3)]}))
     log("k2_variants: " + json.dumps({"card": card,
                                        "variants": k2["variants"]}))
     log("flagship: " + json.dumps({"card": card, **flag}))
@@ -2086,6 +2610,9 @@ def main():
     log("ec_plugins_phase: " + json.dumps(
         {key: ec[key] for key in ("card", "native_threads", "phase_s",
                                   "k1_launches", "k2_launches")}))
+    log("layouts_phase: " + json.dumps(
+        {key: lay[key] for key in ("card", "phase_s", "k1_launches",
+                                   "k3_launches")}))
     log(f"gpu: {card}")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

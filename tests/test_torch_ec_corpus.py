@@ -1,9 +1,9 @@
 """The port's ``ec_non_regression --check --device cpu`` over the EC
 corpus in ``tests/corpus/``: the five w=8 directories (jerasure
-reed_sol_van, isa, lrc, shec, clay), archived from the reference C,
-must check clean byte for byte (every chunk re-encoded, every single
-erasure decoded); the packet directory must fail with the "not ported
-yet" error, and ``ceph_tpu``'s checker must pass all six."""
+reed_sol_van, isa, lrc, shec, clay), archived from the reference C, and
+the packet directory (jerasure cauchy_good, w=8, packetsize 8) must
+check clean byte for byte (every chunk re-encoded, every single erasure
+decoded), as ``ceph_tpu``'s checker does."""
 
 import pathlib
 import shutil
@@ -12,7 +12,6 @@ import pytest
 
 from ceph_tpu.tools import ec_non_regression as jnonreg
 
-from ceph_tpu_torch.ec.interface import ErasureCodeError
 from ceph_tpu_torch.tools import ec_non_regression
 
 CORPUS = pathlib.Path(__file__).resolve().parent / "corpus"
@@ -36,16 +35,14 @@ def test_check_cli_over_the_w8_directories(tmp_path, capsys):
     assert "checked 5 corpus entries: OK" in capsys.readouterr().out
 
 
-def test_packet_directory_is_not_ported(tmp_path, capsys):
-    with pytest.raises(ErasureCodeError, match="not ported yet") as e:
-        ec_non_regression.check_entry(CORPUS / PACKET, device="cpu")
-    assert e.value.errno == -95
+def test_packet_directory_checks_clean(tmp_path, capsys):
+    assert ec_non_regression.check_entry(CORPUS / PACKET, device="cpu") == []
     assert jnonreg.check_entry(CORPUS / PACKET) == []
-    shutil.copytree(CORPUS / PACKET, tmp_path / PACKET)
+    for name in W8 + [PACKET]:
+        shutil.copytree(CORPUS / name, tmp_path / name)
     assert ec_non_regression.main(
-        ["--check", "--device", "cpu", "--base", str(tmp_path)]) == 1
-    err = capsys.readouterr().err
-    assert PACKET in err and "not ported yet" in err and "-95" in err
+        ["--check", "--device", "cpu", "--base", str(tmp_path)]) == 0
+    assert "checked 6 corpus entries: OK" in capsys.readouterr().out
 
 
 def test_create_then_check_round_trips(tmp_path):

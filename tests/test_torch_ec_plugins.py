@@ -1,6 +1,7 @@
-"""The port's EC plugins (``ceph_tpu_torch.ec``: jerasure and isa at w=8,
-lrc, shec, clay) against ``ceph_tpu``'s, on the CPU (K1's plain
-version), over a grid of profiles with and without ``mapping=``.
+"""The port's EC plugins (``ceph_tpu_torch.ec``: jerasure at every
+technique and w, isa, lrc, shec, clay) against ``ceph_tpu``'s, on the
+CPU (the kernels' plain versions), over a grid of profiles with and
+without ``mapping=``.
 
 Chunk sizes, parity and decoded bytes, minimum sets, Clay's repair
 sub-chunks, ``decode_concat``, ``encode_batched``, the rules of
@@ -336,7 +337,11 @@ def test_bad_profiles_give_the_same_error_codes(plugin, profile):
                                           device=CPU))[1] == jerr
 
 
-NOT_PORTED = [
+# profiles at the w=16/32 word layouts and the packet layouts, which
+# K1 (over virtual chunks) and K3 run on the card: jerasure's packet
+# techniques and wide words, SHEC's wide words, an LRC layer and Clay's
+# sub-codes that name a packet technique
+LAYOUT_PROFILES = [
     ("jerasure", {"technique": "cauchy_good", "k": "4", "m": "3", "w": "8",
                   "packetsize": "8"}),
     ("jerasure", {"technique": "cauchy_orig", "k": "4", "m": "2"}),
@@ -358,19 +363,76 @@ NOT_PORTED = [
     ("lrc", {"mapping": "DD_", "layers": json.dumps(
         [["DDc", "technique=cauchy_good packetsize=8"]])}),
 ]
+# ceph_tpu's jerasure test grid (tests/test_jerasure.py): every
+# technique at a few (k, m, w)
+JERASURE_GRID = [
+    {"technique": "reed_sol_van", "k": "2", "m": "2", "w": "8"},
+    {"technique": "reed_sol_van", "k": "3", "m": "2", "w": "16"},
+    {"technique": "reed_sol_van", "k": "4", "m": "3", "w": "32"},
+    {"technique": "reed_sol_r6_op", "k": "4", "m": "2", "w": "8"},
+    {"technique": "cauchy_orig", "k": "2", "m": "2", "w": "4",
+     "packetsize": "8"},
+    {"technique": "cauchy_orig", "k": "4", "m": "3", "w": "8",
+     "packetsize": "8"},
+    {"technique": "cauchy_good", "k": "4", "m": "3", "w": "8",
+     "packetsize": "8"},
+    {"technique": "liberation", "k": "2", "m": "2", "w": "7",
+     "packetsize": "8"},
+    {"technique": "blaum_roth", "k": "2", "m": "2", "w": "6",
+     "packetsize": "8"},
+    {"technique": "liber8tion", "k": "2", "m": "2", "w": "8",
+     "packetsize": "8"},
+]
 
 
-@pytest.mark.parametrize("plugin,profile", NOT_PORTED,
+def _every_erasure_matches(plugin, profile, size, seed):
+    """Geometry, an encode of an unaligned object and the decode of every
+    erasure of up to m chunks (each chunk wanted), equal to ceph_tpu's:
+    the same bytes, or the same error.  Returns the decodes made."""
+    jc, pc = _codes(plugin, profile)
+    for name in ("get_chunk_count", "get_data_chunk_count",
+                 "get_sub_chunk_count", "get_chunk_mapping"):
+        assert getattr(pc, name)() == getattr(jc, name)(), name
+    for obj in (1, size, 3 * size + 5):
+        assert pc.get_chunk_size(obj) == jc.get_chunk_size(obj), obj
+    n = jc.get_chunk_count()
+    raw = _obj(size, seed)
+    jchunks = jc.encode(range(n), raw)
+    pchunks = pc.encode(range(n), raw)
+    _same_chunks(jchunks, pchunks)
+    m = n - jc.get_data_chunk_count()
+    decodes = 0
+    for e in range(1, m + 1):
+        for lost in itertools.combinations(range(n), e):
+            javail = {i: c for i, c in jchunks.items() if i not in lost}
+            pavail = {i: c for i, c in pchunks.items() if i not in lost}
+            want, jerr = _call(lambda: jc.decode(set(range(n)), javail))
+            got, perr = _call(lambda: pc.decode(set(range(n)), pavail))
+            assert perr == jerr, lost
+            if jerr is None:
+                _same_chunks(want, got)
+                decodes += 1
+    return decodes
+
+
+@pytest.mark.parametrize("plugin,profile", LAYOUT_PROFILES,
                          ids=[f"{p}-{i}" for i, (p, _) in
-                              enumerate(NOT_PORTED)])
-def test_packet_and_wide_layouts_raise_not_ported(plugin, profile):
-    """ceph_tpu builds these; the port raises -95 naming the roadmap
-    item, and never falls back to another layout or engine."""
-    jregistry.factory(plugin, dict(profile))
-    with pytest.raises(ErasureCodeError, match="not ported yet") as e:
-        registry.factory(plugin, dict(profile), device=CPU)
-    assert e.value.errno == -95
-    assert "queue 1 item 3" in str(e.value)
+                              enumerate(LAYOUT_PROFILES)])
+def test_packet_and_wide_layouts_match_jax(plugin, profile):
+    """The profiles at the w=16/32 and packet layouts build, encode and
+    decode every erasure of up to m chunks as ceph_tpu does."""
+    assert _every_erasure_matches(plugin, profile, 5000, 3) > 0
+
+
+@pytest.mark.parametrize("profile", JERASURE_GRID,
+                         ids=["%s-k%s-m%s-w%s" % (p["technique"], p["k"],
+                                                  p["m"], p["w"])
+                              for p in JERASURE_GRID])
+def test_jerasure_grid_matches_jax(profile):
+    k, m = int(profile["k"]), int(profile["m"])
+    assert _every_erasure_matches("jerasure", profile, 4099, 4) == sum(
+        len(list(itertools.combinations(range(k + m), e)))
+        for e in range(1, m + 1))
 
 
 @pytest.mark.parametrize("plugin,profile", [

@@ -36,8 +36,22 @@ def _line(capsys):
      "--verify"],
     ["--plugin", "shec", "-P", "k=4", "-P", "m=3", "-P", "c=2",
      "--workload", "encode", "--size", "3000", "--iterations", "3"],
+    ["--plugin", "jerasure", "-P", "technique=cauchy_good", "-P", "k=4",
+     "-P", "m=3", "-P", "packetsize=8", "--workload", "decode", "--size",
+     "9000", "--erasures", "3", "--erasures-generation", "exhaustive",
+     "--verify"],
+    ["--plugin", "jerasure", "-P", "technique=liberation", "-P", "k=2",
+     "-P", "m=2", "-P", "w=7", "-P", "packetsize=8", "--workload",
+     "encode", "--size", "5000", "--iterations", "2"],
+    ["--plugin", "jerasure", "-P", "k=3", "-P", "m=2", "-P", "w=16",
+     "--workload", "decode", "--size", "7001", "--erasures", "2",
+     "--erasures-generation", "exhaustive", "--verify"],
+    ["--plugin", "shec", "-P", "k=4", "-P", "m=3", "-P", "c=2", "-P",
+     "w=32", "--workload", "decode", "--size", "6000", "--erasures", "2",
+     "--iterations", "6", "--verify"],
 ], ids=["jerasure-encode", "lrc-decode", "isa-decode", "clay-decode",
-        "shec-encode"])
+        "shec-encode", "cauchy_good-decode", "liberation-encode",
+        "w16-decode", "shec-w32-decode"])
 def test_output_matches_jax_package(args, capsys):
     assert jec_benchmark.main(args) == 0
     j_elapsed, j_kib = _line(capsys)

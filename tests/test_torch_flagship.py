@@ -22,11 +22,13 @@ from ceph_tpu_torch.convert import bitcode_from_numpy, map_arrays_from_numpy
 from ceph_tpu_torch.crush.builder import sample_cluster_map
 from ceph_tpu_torch.crush.map_arrays import as_i32
 from ceph_tpu_torch.crush.mapper import BatchedMapper, build_rule_fn
+from ceph_tpu_torch.crush.mapper_spec import (SpeculativeMapper,
+                                              build_spec_rule_fn)
 from ceph_tpu_torch.crush.wrapper import CrushWrapper
 from ceph_tpu_torch.ec import gf
-from ceph_tpu_torch.ec.engine import BitCode
+from ceph_tpu_torch.ec.engine import BitCode, Layout
 from ceph_tpu_torch.ec.rs import RSCode
-from ceph_tpu_torch.flagship import flagship
+from ceph_tpu_torch.flagship import flagship, spec_cross_check
 from ceph_tpu_torch.mgr.balancer_module import evaluate, run_offline
 from ceph_tpu_torch.osdmap.balancer import build_pgs_by_osd, calc_pg_upmaps
 from ceph_tpu_torch.osdmap.osdmap import OSDMap, PgPool
@@ -138,7 +140,8 @@ def test_port_never_imports_jax_or_the_jax_package(tmp_path):
                  "ec.native_gf", "ec.interface", "ec.registry",
                  "ec.jerasure", "ec.isa", "ec.shec", "ec.lrc", "ec.clay",
                  "ec.stripe", "tools.ec_benchmark",
-                 "tools.ec_non_regression"):
+                 "tools.ec_non_regression", "ec.layout", "ec.gf2_packet",
+                 "crush.mapper_spec"):
         assert "ceph_tpu_torch." + name in modules
 
 
@@ -169,6 +172,11 @@ def test_entry_points_default_to_the_card(tmp_path):
         lambda: CrushTester(CrushWrapper(cmap)).compare(
             CrushTester(CrushWrapper(cmap)), 0, 3),
         lambda: crushtool.main(["-i", str(crush_file), "--test"]),
+        lambda: BitCode(2, 2, np.zeros((16, 16), np.uint8), Layout(8, 8)),
+        lambda: BitCode(2, 2, np.zeros((32, 32), np.uint8), Layout(16)),
+        lambda: SpeculativeMapper(cmap),
+        lambda: build_spec_rule_fn(cmap, 0, 3),
+        lambda: spec_cross_check(16),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
