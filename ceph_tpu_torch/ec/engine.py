@@ -34,13 +34,13 @@ DECODE_CACHE_SIZE = 512  # erasure signatures kept per code
 def device_matrix(bm: np.ndarray, device: torch.device,
                   layout: Layout = None):
     """A 0/1 bit matrix on ``device`` with its kernel's form of it (K1's
-    fragments for a word or byte layout, K3's row masks for a packet
+    fragments for a word or byte layout, K3's index lists for a packet
     layout; None on the CPU), for a caller that applies it many times.
     K1's fragments are built on the current stream, which is waited for
     once here, so a launch on any stream may use them."""
     t = torch.from_numpy(np.ascontiguousarray(bm, np.uint8)).to(device)
     if layout is not None and layout.is_packet:
-        aux = gf2_packet.packet_masks(t, layout.w)
+        aux = gf2_packet.packet_lists(t, layout.w)
     else:
         aux = gf2_kernels.gf2_fragments(t)
     if aux is not None:
@@ -82,7 +82,7 @@ class BitCode:
         self.coding_bm = coding_bm
         self.full_bm = np.concatenate(
             [np.eye(w * k, dtype=np.uint8), coding_bm], axis=0)
-        # the kernel's form of it: the matrix and its fragments or masks
+        # the kernel's form of it: the matrix and its fragments or lists
         self._enc_dev, self._enc_frag = device_matrix(coding_bm, self.device,
                                                       self.layout)
         self._dec_cache: Dict[Tuple[int, ...], tuple] = {}
@@ -129,7 +129,7 @@ class BitCode:
     def _decode_mats(self, present: Tuple[int, ...]):
         """The GF(2) decode matrix for k survivors, inverted on the host
         and cached by erasure signature with its kernel's form of it:
-        (inverse, fragments or masks or None)."""
+        (inverse, fragments or lists or None)."""
         mats = self._dec_cache.get(present)
         if mats is None:
             w = self.layout.w

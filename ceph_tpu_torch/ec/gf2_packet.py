@@ -13,14 +13,14 @@ coding bit matrix, decode the inverted survivor matrix.
 (``csrc/gf2_packet.cu``) on CUDA tensors and runs ``gf2_packet_plain``
 (``Layout.apply_plain``) on CPU tensors; on any other device it raises.
 ``gf2_packet.launches`` counts the kernel's launches.  The kernel takes
-the bit matrix as one mask of 32-bit words a row, which
-``packet_masks`` builds on the matrix's device once per matrix.
+the bit matrix as index lists (the set bits of each row), which
+``packet_lists`` builds on the matrix's device once per matrix.
 """
 
 from __future__ import annotations
 
+import array
 import ctypes
-import functools
 
 import torch
 
@@ -29,8 +29,11 @@ from .gf2_kernels import _check_rows, _on
 from .layout import Layout
 
 MAX_ROWS = 32     # input and output chunks: the kernel's row tables
-MAX_BITS = 256    # w*k and w*m: the kernel's masks and scratch
+MAX_BITS = 256    # w*k and w*m: the kernel's index lists
 MAX_BATCH = 65535  # stripes per launch
+PLAN_FIELDS = ("vec_bytes", "mode", "blocks_per_tile", "ranges_per_block",
+               "run_pieces", "tiles", "grid", "smem_bytes")
+MODES = ("bulk", "async", "sync")   # how a tile is staged (gf2_packet.cuh)
 
 
 def gf2_packet_plain(bm_bits: torch.Tensor, data: torch.Tensor, w: int,
@@ -59,44 +62,52 @@ def _check_limits(k: int, m: int, w: int):
                          f"{MAX_BITS}; got w={w}, k={k}, m={m}")
 
 
+_launch = None
+
+
 def _lib():
+    """The kernel's library, its two entry points typed once."""
+    global _launch
     lib = build.load("gf2_packet")
-    fn = lib.gf2_packet_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
+    if _launch is None:
+        fn = lib.gf2_packet_launch
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.gf2_packet_vec_bytes.argtypes = [
-            ctypes.c_int, ctypes.c_ulonglong, ctypes.c_longlong,
-            ctypes.c_longlong, ctypes.c_int]
-        lib.gf2_packet_vec_bytes.restype = ctypes.c_int
+        lib.gf2_packet_plan.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_ulonglong, ctypes.POINTER(ctypes.c_longlong)]
+        lib.gf2_packet_plan.restype = None
+        _launch = fn
     return lib
 
 
-@functools.lru_cache(maxsize=None)
-def _bit_weights(device: torch.device) -> torch.Tensor:
-    return torch.ones(32, dtype=torch.int64, device=device) \
-        << torch.arange(32, dtype=torch.int64, device=device)
+def index_lists(bm_bits: torch.Tensor, w: int) -> torch.Tensor:
+    """Row lists of a 0/1 bit matrix (w*m, w*k), by PyTorch ops on its
+    device: int32[2*w*m + npad], the w*m starts of the rows' lists, the
+    w*m ends, then each row's set bits in column order, column c*w + r'
+    as ``(c << 16) | r'``, each row starting at a multiple of 4 entries
+    (pads, -1, between rows)."""
+    rows = bm_bits.shape[0]
+    nz = (bm_bits & 1).nonzero()            # row-major order
+    counts = torch.bincount(nz[:, 0], minlength=rows)
+    padded = (counts + 3) // 4 * 4
+    starts = padded.cumsum(0) - padded
+    col = nz[:, 1]
+    first = (counts.cumsum(0) - counts)[nz[:, 0]]
+    at = starts[nz[:, 0]] + torch.arange(len(nz), device=nz.device) - first
+    entries = torch.full((int(padded.sum()),), -1, dtype=torch.int64,
+                         device=bm_bits.device)
+    entries[at] = (torch.div(col, w, rounding_mode="floor") << 16) | (col % w)
+    return torch.cat([starts, starts + counts, entries]).to(
+        torch.int32).contiguous()
 
 
-def mask_words(bm_bits: torch.Tensor) -> torch.Tensor:
-    """Row masks of a 0/1 bit matrix (R, C), by PyTorch ops on its
-    device: int32[R * ceil(C / 32)], bit i of word q of row o being
-    ``bm[o, 32q + i]`` (int32 bit patterns of the kernel's u32 words)."""
-    rows, cols = bm_bits.shape
-    nw = (cols + 31) // 32
-    bits = torch.zeros((rows, nw * 32), dtype=torch.int64,
-                       device=bm_bits.device)
-    bits[:, :cols] = bm_bits & 1
-    words = (bits.view(rows, nw, 32) * _bit_weights(bm_bits.device)).sum(-1)
-    words = torch.where(words >= 1 << 31, words - (1 << 32), words)
-    return words.to(torch.int32).reshape(-1).contiguous()
-
-
-def packet_masks(bm_bits: torch.Tensor, w: int) -> torch.Tensor:
-    """The bit matrix as kernel K3 takes it (``mask_words``), built on
+def packet_lists(bm_bits: torch.Tensor, w: int) -> torch.Tensor:
+    """The bit matrix as kernel K3 takes it (``index_lists``), built on
     the matrix's device once per matrix.  None for a matrix on the CPU,
     where the plain version needs none.  Raises ``ValueError`` for a
     matrix past the kernel's limits."""
@@ -106,25 +117,39 @@ def packet_masks(bm_bits: torch.Tensor, w: int) -> torch.Tensor:
     if bm_bits.device.type != "cuda":
         raise ValueError(f"unsupported device {bm_bits.device}")
     _check_limits(k, m, w)
-    return mask_words(bm_bits)
+    return index_lists(bm_bits, w)
 
 
-def vec_bytes(packetsize: int, addr_or: int, B: int, L: int, w: int) -> int:
-    """The vector width (bytes a thread) K3 takes for a launch whose row
-    addresses and stride OR to ``addr_or``."""
-    return _lib().gf2_packet_vec_bytes(packetsize, addr_or, B, L, w)
+def plan(packetsize: int, w: int, k: int, m: int, npad: int, L: int,
+         B: int, addr_or: int) -> dict:
+    """The plan K3 takes for a launch whose lists hold ``npad`` entries
+    (``index_lists``: ``numel() - 2*w*m``) and whose row addresses and
+    stripe stride OR to ``addr_or`` (``gf2_packet.cuh``'s ``plan`` on
+    the current card): ``PLAN_FIELDS``, with ``mode`` named."""
+    out = (ctypes.c_longlong * len(PLAN_FIELDS))()
+    _lib().gf2_packet_plan(packetsize, w, k, m, npad, L, B, addr_or, out)
+    rec = dict(zip(PLAN_FIELDS, out))
+    rec["mode"] = MODES[rec["mode"]]
+    return rec
+
+
+def _stream(index: int) -> int:
+    """The current stream of device ``index``, by the call PyTorch's own
+    generated kernels use: microseconds less a call than
+    ``torch.cuda.current_stream(index).cuda_stream``."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def gf2_packet(bm_bits: torch.Tensor, data, w: int, packetsize: int,
-               masks: torch.Tensor = None) -> torch.Tensor:
+               lists: torch.Tensor = None) -> torch.Tensor:
     """(w*m, w*k) 0/1 bit matrix applied in the packet layout (w,
     packetsize) to u8[k, L] (or u8[B, k, L] stripes, or a sequence of k
     u8[L] rows) -> u8[m, L] (or u8[B, m, L]).  Kernel K3 on CUDA
     tensors, the plain version on CPU tensors.
 
     Rows given one by one (a decode's survivors) are read where they
-    lie: the kernel takes a table of their addresses.  ``masks``:
-    ``packet_masks(bm_bits, w)``, built here when not given (CUDA
+    lie: the kernel takes a table of their addresses.  ``lists``:
+    ``packet_lists(bm_bits, w)``, built here when not given (CUDA
     only)."""
     k, m = _check_bm(bm_bits, w)
     if packetsize < 1:
@@ -164,20 +189,28 @@ def gf2_packet(bm_bits: torch.Tensor, data, w: int, packetsize: int,
     if isinstance(data, torch.Tensor):   # rows in place: base + c * L
         table, base, stride = None, data.data_ptr(), k * L
     else:
-        table = (ctypes.c_void_p * k)(*[r.data_ptr() for r in data])
-        base, stride = None, 0
-    if masks is None:
-        masks = packet_masks(bm_bits, w)
-    nw = (w * k + 31) // 32
-    if (masks.dtype != torch.int32 or masks.device != device
-            or masks.numel() != w * m * nw or not masks.is_contiguous()):
-        raise ValueError("masks are not packet_masks(bm_bits, w) on the "
+        rows = array.array("Q", map(torch.Tensor.data_ptr, data))
+        table, base, stride = rows.buffer_info()[0], None, 0
+    if lists is None:
+        lists = packet_lists(bm_bits, w)
+    npad = lists.numel() - 2 * w * m
+    if (lists.dtype != torch.int32 or lists.device != device
+            or not 0 <= npad <= w * m * (w * k + 3)
+            or not lists.is_contiguous()):
+        raise ValueError("lists are not packet_lists(bm_bits, w) on the "
                          "data's device")
-    with _on(device):
-        stream = torch.cuda.current_stream(device.index).cuda_stream
-        rc = _lib().gf2_packet_launch(masks.data_ptr(), table, base, stride,
-                                      out.data_ptr(), B, k, m, w, packetsize,
-                                      L, stream)
+    if _launch is None:
+        _lib()
+    current = torch.cuda.current_device()
+    if device.index is None or device.index == current:
+        rc = _launch(lists.data_ptr(), npad, table, base, stride,
+                     out.data_ptr(), B, k, m, w, packetsize, L,
+                     _stream(current))
+    else:
+        with _on(device):
+            rc = _launch(lists.data_ptr(), npad, table, base, stride,
+                         out.data_ptr(), B, k, m, w, packetsize, L,
+                         _stream(device.index))
     if rc != 0:
         raise RuntimeError(f"gf2_packet launch failed: cudaError {rc}")
     gf2_packet.launches += 1

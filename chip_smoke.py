@@ -2058,10 +2058,10 @@ class K3Tap:
         self.mod, self.real = gf2_packet, gf2_packet.gf2_packet
         real, plain = self.real, gf2_packet.gf2_packet_plain
 
-        def tap(bm, data, w, ps, masks=None):
-            out = real(bm, data, w, ps, masks)
+        def tap(bm, data, w, ps, lists=None):
+            out = real(bm, data, w, ps, lists)
             if self.record:
-                self.calls.append((bm, data, w, ps, masks))
+                self.calls.append((bm, data, w, ps, lists))
             if self.check:
                 rows = torch.stack(list(data)) \
                     if isinstance(data, (list, tuple)) else data
@@ -2086,14 +2086,14 @@ class K3Tap:
 
     def bound_ms(self):
         """The recorded launches' byte bound: each input row read once,
-        each output row written once, the masks read once."""
+        each output row written once, the index lists read once."""
         nbytes = 0
-        for bm, data, w, _, masks in self.calls:
+        for bm, data, w, _, lists in self.calls:
             k, m = bm.shape[1] // w, bm.shape[0] // w
             cols = data[0].numel() if isinstance(data, (list, tuple)) \
                 else data.numel() // k
-            nbytes += (k + m) * cols + (0 if masks is None
-                                        else 4 * masks.numel())
+            nbytes += (k + m) * cols + (0 if lists is None
+                                        else 4 * lists.numel())
         return nbytes / HBM_BYTES_PER_S * 1e3
 
 
@@ -2183,100 +2183,144 @@ def layout_call_times(code, raw, decode):
     return k_ms, len(t1.calls), len(t3.calls), t1.bound_ms() + t3.bound_ms()
 
 
+# K3's variants (csrc/gf2_packet.cuh's plan) at w=8, k=4, m=3, each held
+# to the plain version on the card: (label, packet size, stripes, L, row
+# offset (None: stripes in place), the plan's piece width, staging and
+# tiles ("blocks": whole blocks, "ranges": column ranges of a block))
+K3_VARIANTS = (
+    ("bulk, a run a row", 128, 1, 1 << 20, None, 16, "bulk", "blocks"),
+    ("bulk, a run a padded block", 112, 1, 896 * 1171, None, 16, "bulk",
+     "blocks"),
+    ("cp.async 16, padded blocks", 16, 1, 1 << 20, None, 16, "async",
+     "blocks"),
+    ("bulk, column ranges", 2048, 1, 1 << 20, None, 16, "bulk", "ranges"),
+    ("bulk, ranges ending inside a block", 2064, 1, 16512 * 64, None, 16,
+     "bulk", "ranges"),
+    ("bulk, 4 stripes", 2048, 4, 1 << 20, None, 16, "bulk", "ranges"),
+    ("cp.async 8, the last tile short", 8, 1, 1 << 20, None, 8, "async",
+     "blocks"),
+    ("cp.async 8, 4 stripes", 8, 4, 1 << 20, None, 8, "async", "blocks"),
+    ("cp.async 4, rows 4 bytes off", 8, 1, 1 << 20, 4, 4, "async",
+     "blocks"),
+    ("plain 2, packet size 6", 6, 1, 48 * 21846, None, 2, "sync", "blocks"),
+    ("plain 1, rows at odd offsets", 8, 1, 64 * 1000, 1, 1, "sync",
+     "blocks"),
+)
+
+
 def check_k3_widths(dev):
-    """K3 at each vector width it is built for, against the plain version
-    on a random bit matrix (w=8, k=4, m=3): 16 and 8 bytes (4 stripes of
-    [4, 1 MiB] at packet sizes 2048 and 8), 4 (one stripe), 2 (packet
-    size 6) and 1 (rows at odd offsets of one buffer).  Returns the
-    widths run."""
+    """K3 in each of its variants (``K3_VARIANTS``: the piece widths 16,
+    8, 4, 2 and 1; bulk, cp.async and plain staging; whole-block tiles,
+    the last one short, and column ranges, the last of a block short;
+    one stripe, 4 stripes in place and rows read where they lie) against
+    the plain version on a random bit matrix (w=8, k=4, m=3).  Returns
+    the labels run."""
     import torch
 
     from ceph_tpu_torch.ec.gf2_packet import (gf2_packet, gf2_packet_plain,
-                                              packet_masks, vec_bytes)
+                                              index_lists, packet_lists, plan)
 
     w, k, m = 8, 4, 3
     rng = np.random.default_rng(11)
     bm = torch.from_numpy(rng.integers(0, 2, (w * m, w * k),
                                        dtype=np.uint8)).to(dev)
-    masks = packet_masks(bm, w)
+    lists = packet_lists(bm, w)
+    npad = index_lists(bm, w).numel() - 2 * w * m
     gen = torch.Generator(device=dev).manual_seed(11)
-    widths = []
-    for want, ps, B, L, odd in ((16, 2048, 4, 1 << 20, False),
-                                (8, 8, 4, 1 << 20, False),
-                                (4, 8, 1, 1 << 20, False),
-                                (2, 6, 1, 48 * 1000, False),
-                                (1, 8, 1, 64 * 1000, True)):
+    run = []
+    for label, ps, B, L, off, V, mode, tiles in K3_VARIANTS:
         data = torch.randint(0, 256, (B, k, L), dtype=torch.uint8,
                              device=dev, generator=gen)
         arg = data if B > 1 else data[0]
         addr = data.data_ptr() | k * L
-        if odd:
-            buf = torch.zeros(k * (L + 1) + 1, dtype=torch.uint8, device=dev)
+        if off is not None:
+            buf = torch.zeros(k * (L + off) + off, dtype=torch.uint8,
+                              device=dev)
             arg, addr = [], 0
             for c in range(k):
-                off = 1 + c * (L + 1)
-                buf[off:off + L] = data[0, c]
-                arg.append(buf[off:off + L])
+                at = off + c * (L + off)
+                buf[at:at + L] = data[0, c]
+                arg.append(buf[at:at + L])
                 addr |= arg[-1].data_ptr()
-        got_w = vec_bytes(ps, addr, B, L, w)
-        if got_w != want:
-            raise AssertionError(f"K3 took {got_w}-byte vectors where "
-                                 f"{want} were meant")
+        got = plan(ps, w, k, m, npad, L, B, addr)
+        if (got["vec_bytes"], got["mode"],
+                "blocks" if got["blocks_per_tile"] else "ranges") \
+                != (V, mode, tiles):
+            raise AssertionError(f"K3 {label}: planned {got}")
         exp = gf2_packet_plain(bm, data if B > 1 else data[0], w, ps)
-        if max_abs_err(gf2_packet(bm, arg, w, ps, masks), exp):
-            raise AssertionError(f"K3 differs from plain at {want}-byte "
-                                 f"vectors")
-        widths.append(got_w)
+        if max_abs_err(gf2_packet(bm, arg, w, ps, lists), exp):
+            raise AssertionError(f"K3 differs from plain: {label}")
+        run.append(f"{label} ({got['tiles']} tiles)")
     del data, exp
-    return widths
+    return run
 
 
-def time_k3(dev, profile):
+def time_k3(dev, profile, batch=False):
     """K3 alone at a 4 MiB object's chunks of ``profile``: encode
     [k, L] cycling K3_SETS input sets, and the decode of its first two
     chunks through the inverse with the survivors as separate rows, each
-    held to the plain version first."""
+    held to the plain version first; with ``batch``, also 4 stripes
+    [4, k, L] in place, cycling K3_SETS / 4 sets."""
     import torch
 
     from ceph_tpu_torch.ec.gf2_packet import (gf2_packet, gf2_packet_plain,
-                                              vec_bytes)
+                                              index_lists, plan)
     from ceph_tpu_torch.ec.registry import factory
 
     bc = factory("jerasure", profile, device=dev)._code
     k, m, w, ps = bc.k, bc.m, bc.layout.w, bc.layout.packetsize
     L = factory("jerasure", profile, device="cpu").get_chunk_size(EC_OBJECT)
-    bm, masks = bc._enc_dev, bc._enc_frag
+    bm, lists = bc._enc_dev, bc._enc_frag
+    npad = index_lists(bm, w).numel() - 2 * w * m
     gen = torch.Generator(device=dev).manual_seed(9)
     sets = [torch.randint(0, 256, (k, L), dtype=torch.uint8, device=dev,
                           generator=gen) for _ in range(K3_SETS)]
     for d in sets[:2]:
-        if max_abs_err(gf2_packet(bm, d, w, ps, masks),
+        if max_abs_err(gf2_packet(bm, d, w, ps, lists),
                        gf2_packet_plain(bm, d, w, ps)):
             raise AssertionError(f"K3 differs from plain on [{k}, {L}]")
+    pl = plan(ps, w, k, m, npad, L, 1, sets[0].data_ptr() | k * L)
     rec = {"w": w, "packetsize": ps, "k": k, "m": m, "L": L,
-           "vec_bytes": vec_bytes(ps, sets[0].data_ptr() | k * L, 1, L, w)}
+           "vec_bytes": pl["vec_bytes"], "mode": pl["mode"],
+           "tiles": pl["tiles"]}
     rec["ms"] = cuda_ms(lambda i: gf2_packet(bm, sets[i % K3_SETS], w, ps,
-                                             masks), 32, warmup=2)
+                                             lists), 32, warmup=2)
     rec["graph_ms"] = cuda_graph_ms(
-        lambda i: gf2_packet(bm, sets[i % K3_SETS], w, ps, masks), K3_SETS)
+        lambda i: gf2_packet(bm, sets[i % K3_SETS], w, ps, lists), K3_SETS)
     rec["plain_ms"] = cuda_ms(lambda i: gf2_packet_plain(
         bm, sets[i % K3_SETS], w, ps), 3)
-    mask_bytes = 0 if masks is None else 4 * masks.numel()
-    rec["bound_ms"] = ((k + m) * L + mask_bytes) / HBM_BYTES_PER_S * 1e3
-    full = torch.cat([sets[0], gf2_packet(bm, sets[0], w, ps, masks)])
-    inv, imasks = bc._decode_mats(tuple(range(2, k + 2)))
+    lists_bytes = 0 if lists is None else 4 * lists.numel()
+    rec["bound_ms"] = ((k + m) * L + lists_bytes) / HBM_BYTES_PER_S * 1e3
+    full = torch.cat([sets[0], gf2_packet(bm, sets[0], w, ps, lists)])
+    inv, ilists = bc._decode_mats(tuple(range(2, k + 2)))
     rows = [full[i].clone() for i in range(2, k + 2)]
-    got = gf2_packet(inv, rows, w, ps, imasks)
+    got = gf2_packet(inv, rows, w, ps, ilists)
     if max_abs_err(got, gf2_packet_plain(inv, torch.stack(rows), w, ps)) \
             or not torch.equal(got, sets[0]):
         raise AssertionError("K3 decode differs from plain or did not give "
                              "the data back")
     rec["decode_ms"] = cuda_ms(lambda i: gf2_packet(inv, rows, w, ps,
-                                                    imasks), 32, warmup=2)
+                                                    ilists), 32, warmup=2)
     rec["decode_graph_ms"] = cuda_graph_ms(
-        lambda i: gf2_packet(inv, rows, w, ps, imasks), 16)
-    rec["decode_bound_ms"] = (2 * k * L + mask_bytes) / HBM_BYTES_PER_S * 1e3
+        lambda i: gf2_packet(inv, rows, w, ps, ilists), 16)
+    rec["decode_bound_ms"] = (2 * k * L + (
+        0 if ilists is None else 4 * ilists.numel())) / HBM_BYTES_PER_S * 1e3
     del sets, full, rows
+    if batch:   # 4 stripes in place, the streaming rate past the tail
+        n = K3_SETS // 4
+        stripes = [torch.randint(0, 256, (4, k, L), dtype=torch.uint8,
+                                 device=dev, generator=gen)
+                   for _ in range(n)]
+        if max_abs_err(gf2_packet(bm, stripes[0], w, ps, lists),
+                       gf2_packet_plain(bm, stripes[0], w, ps)):
+            raise AssertionError(f"K3 differs from plain on [4, {k}, {L}]")
+        rec["batch_ms"] = cuda_ms(lambda i: gf2_packet(
+            bm, stripes[i % n], w, ps, lists), 16, warmup=2)
+        rec["batch_graph_ms"] = cuda_graph_ms(
+            lambda i: gf2_packet(bm, stripes[i % n], w, ps, lists), n)
+        rec["batch_bound_ms"] = (4 * (k + m) * L + lists_bytes) \
+            / HBM_BYTES_PER_S * 1e3
+        del stripes
     torch.cuda.empty_cache()
     return rec
 
@@ -2390,14 +2434,14 @@ def phase_layouts(dev, workdir, card):
                     layout_call_times(code, raw, rec["workload"] != "encode")
                 log("layouts: " + json.dumps({"card": card, **rec}))
 
-    widths = check_k3_widths(dev)
-    log(f"k3 check: equal to the plain version at {widths}-byte vectors "
-        f"(stripes in place, one stripe, rows at odd offsets)")
+    variants = check_k3_widths(dev)
+    log(f"k3 check: equal to the plain version in each variant: "
+        f"{'; '.join(variants)}")
 
     # K3 alone, and the word route's parts
     corpus_profile = {"technique": "cauchy_good", "k": "4", "m": "3",
                       "w": "8", "packetsize": "8"}
-    k3 = time_k3(dev, corpus_profile)
+    k3 = time_k3(dev, corpus_profile, batch=True)
     k3_2048 = time_k3(dev, {"technique": "cauchy_good", "k": "4",
                             "m": "3"})
     log("k3: " + json.dumps({"card": card, **k3}))
@@ -2421,10 +2465,15 @@ def phase_layouts(dev, workdir, card):
              "shape": f"encode [{k3['k']}, {k3['L']}] -> [{k3['m']}, "
                       f"{k3['L']}] u8, w={k3['w']} packetsize="
                       f"{k3['packetsize']} ({k3['vec_bytes']}-byte "
-                      f"vectors); decode through the inverse: kernel_ms="
+                      f"pieces, {k3['mode']} staging, {k3['tiles']} "
+                      f"tiles); decode through the inverse: kernel_ms="
                       f"{k3['decode_ms']:.4f} graph_ms="
                       f"{k3['decode_graph_ms']:.4f} bound_ms="
-                      f"{k3['decode_bound_ms']:.4f}; packetsize 2048: "
+                      f"{k3['decode_bound_ms']:.4f}; 4 stripes [4, "
+                      f"{k3['k']}, {k3['L']}]: kernel_ms="
+                      f"{k3['batch_ms']:.4f} graph_ms="
+                      f"{k3['batch_graph_ms']:.4f} bound_ms="
+                      f"{k3['batch_bound_ms']:.4f}; packetsize 2048: "
                       f"kernel_ms={k3_2048['ms']:.4f} graph_ms="
                       f"{k3_2048['graph_ms']:.4f} bound_ms="
                       f"{k3_2048['bound_ms']:.4f}"}

@@ -29,7 +29,7 @@ from ceph_tpu_torch.ec.gf2_kernels import (gf2_matmul_w8, gf2_matmul_w8_plain,
                                            gf2_matmul_words_plain,
                                            interleave_words, virtual_chunks)
 from ceph_tpu_torch.ec.gf2_packet import (gf2_packet, gf2_packet_plain,
-                                          packet_masks)
+                                          packet_lists)
 from ceph_tpu_torch.ec.gfw import GFW, gf2_mat_inv
 from ceph_tpu_torch.ec.matrices import cauchy_good_coding_matrix
 from ceph_tpu_torch.ec.rs import RSCode
@@ -309,7 +309,7 @@ def test_layout_wrappers_reject_bad_inputs():
         gf2_packet(bm, torch.zeros((4, 64), dtype=torch.int32), 8, 8)
     with pytest.raises(ValueError):
         gf2_packet(bm[:, :30], torch.zeros((4, 64), dtype=torch.uint8), 8, 8)
-    assert packet_masks(bm, 8) is None   # the plain version needs none
+    assert packet_lists(bm, 8) is None   # the plain version needs none
 
 
 def _survivor_layouts(full, present, L):
