@@ -1,0 +1,12 @@
+"""Correctness analysis of the port: lockdep, kernel contracts and the
+host-sync lint.
+
+``contracts`` and ``lint_torch`` are not imported here: import them
+explicitly (``contracts`` builds codes and maps when it verifies).
+"""
+
+from .lockdep import (DLock, DRLock, enable, enabled, make_lock,
+                      make_rlock, violations)
+
+__all__ = ["DLock", "DRLock", "enable", "enabled", "make_lock",
+           "make_rlock", "violations"]

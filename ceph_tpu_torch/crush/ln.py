@@ -109,7 +109,7 @@ def straw2_magic(weights) -> np.ndarray:
     w = np.asarray(weights).astype(np.int64) & M32
     vals, inv = np.unique(w, return_inverse=True)
     table = np.zeros(len(vals), np.uint64)
-    for j, v in enumerate(vals.tolist()):
+    for j, v in enumerate(vals.tolist()):  # sync-ok: a numpy array of the map's weights, built on the host
         if v:
             shift = (v - 1).bit_length()
             m = -(-(1 << (MAGIC_NUM_BITS + shift)) // v)

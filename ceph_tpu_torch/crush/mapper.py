@@ -28,12 +28,15 @@ above ``MAX_RESULT``) is refused by ``compile_rule`` on both paths.
 from __future__ import annotations
 
 import ctypes
+import time
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
 
 from .. import build
+from ..common import device_metrics
+from ..common.perf_counters import collection
 from ..device import resolve_device
 from . import constants as C
 from .hash import crush_hash32_2, crush_hash32_3, crush_hash32_4
@@ -49,6 +52,17 @@ UNDEF = C.CRUSH_ITEM_UNDEF
 NONE = C.CRUSH_ITEM_NONE
 S64_MIN = C.S64_MIN
 N_ALGS = 5  # columns of ``draws``: bucket algorithm - 1
+
+# process-global batched-mapper metrics, ``ceph_tpu``'s names: launch
+# count/size, steady-state latency, and first-call counts/time kept
+# apart (``jit_compiles`` counts a signature's first call, which builds
+# the kernel library and the launch plan here)
+_pc = collection().create("crush.mapper")
+for _k in ("map_calls", "xs_mapped", "jit_compiles"):
+    _pc.add_u64_counter(_k)
+_pc.add_time("map_time")
+_pc.add_time("jit_compile_time")
+_pc.add_histogram("map_lat")
 
 _CHOOSE_OPS = (C.CRUSH_RULE_CHOOSE_FIRSTN, C.CRUSH_RULE_CHOOSE_INDEP,
                C.CRUSH_RULE_CHOOSELEAF_FIRSTN, C.CRUSH_RULE_CHOOSELEAF_INDEP)
@@ -201,7 +215,7 @@ class _PlainWalk:
         bid = -1 - bi  # the bucket id
         nw = self.nw[bi]
         while True:
-            go = ((n & 1) == 0).nonzero()[:, 0]
+            go = ((n & 1) == 0).nonzero()[:, 0]  # sync-ok: plain walk, CPU only
             if go.numel() == 0:
                 break
             ng = n[go]
@@ -230,7 +244,7 @@ class _PlainWalk:
             % (sz[:, None] - k).clamp(min=1)
         i = torch.where(k < sz[:, None] - 1, i, torch.zeros_like(i))
         p = pr.clone()
-        for step in range(int(pr.max()), -1, -1):
+        for step in range(int(pr.max()), -1, -1):  # sync-ok: the plain walk's loop bound (CPU tensors; K2 on the card)
             on = step <= pr
             ik = step + i[:, step]
             p = torch.where(on & (p == step), ik,
@@ -245,7 +259,7 @@ class _PlainWalk:
         alg = self.alg[bi]
         item = torch.zeros_like(bi)
         for a in self.algs:
-            sel = (alg == a).nonzero()[:, 0]
+            sel = (alg == a).nonzero()[:, 0]  # sync-ok: plain walk, CPU only
             if sel.numel():
                 item[sel] = self._choose[a](x[sel], bi[sel], r[sel],
                                             position[sel])
@@ -279,7 +293,7 @@ class _PlainWalk:
         Returns the new outpos."""
         rep, outpos, count = rep.clone(), outpos.clone(), count.clone()
         while True:
-            go = ((rep < numrep) & (count > 0)).nonzero()[:, 0]
+            go = ((rep < numrep) & (count > 0)).nonzero()[:, 0]  # sync-ok: plain walk, CPU only
             if go.numel() == 0:
                 return outpos
             placed, item = self._firstn_rep(
@@ -318,7 +332,7 @@ class _PlainWalk:
             usep = ~empty & (fl >= (sz >> 1)) & (fl > fallback) \
                 if fallback > 0 else torch.zeros_like(empty)
             for mask, fn in ((usep, self.perm), (~empty & ~usep, self.choose)):
-                sel = mask.nonzero()[:, 0]
+                sel = mask.nonzero()[:, 0]  # sync-ok: plain walk, CPU only
                 if sel.numel():
                     it[sel] = fn(self.x[ln[sel]], bi[sel], r[sel],
                                  outpos[g[sel]])
@@ -333,7 +347,7 @@ class _PlainWalk:
             reject = empty.clone()
             if leaf:
                 do_rec = live & ~collide
-                rec = (do_rec & (it < 0)).nonzero()[:, 0]
+                rec = (do_rec & (it < 0)).nonzero()[:, 0]  # sync-ok: plain walk, CPU only
                 if rec.numel():
                     gr = g[rec]
                     op = outpos[gr]
@@ -348,9 +362,9 @@ class _PlainWalk:
                         fallback, False, vary_r, stable, None, sub_r)
                     out2[gr] = sub_out
                     reject[rec] |= got <= op
-                dev = (do_rec & (it >= 0)).nonzero()[:, 0]
+                dev = (do_rec & (it >= 0)).nonzero()[:, 0]  # sync-ok: plain walk, CPU only
                 out2[g[dev], outpos[g[dev]]] = it[dev]
-            check = (live & ~collide & ~reject & (itype == 0)).nonzero()[:, 0]
+            check = (live & ~collide & ~reject & (itype == 0)).nonzero()[:, 0]  # sync-ok: plain walk, CPU only
             if check.numel():
                 reject[check] |= self.is_out(ln[check], it[check])
             fail = reject | collide
@@ -368,7 +382,7 @@ class _PlainWalk:
             in_bi[pend] = torch.where(descend, cidx,
                                       torch.where(retry_d, root[g], bi))
             flocal[pend] = torch.where(retry_d, torch.zeros_like(fl), fl)
-            pend = pend[~done]
+            pend = pend[~done]  # sync-ok: plain walk, CPU only
         return placed, item
 
     # -- indep --------------------------------------------------------
@@ -385,22 +399,22 @@ class _PlainWalk:
         if out2 is not None:
             out2[seg] = UNDEF
         left = left.clone()
-        width = int(left.max()) if left.numel() else 0
+        width = int(left.max()) if left.numel() else 0  # sync-ok: the plain walk's loop bound (CPU tensors; K2 on the card)
         for ftotal in range(tries):
             active = left > 0
-            if not bool(active.any()):
+            if not bool(active.any()):  # sync-ok: the plain walk's early exit (CPU tensors; K2 on the card)
                 break
             for rep in range(outpos, outpos + width):
-                sel = (active & (rep < endpos)
+                sel = (active & (rep < endpos)  # sync-ok: plain walk, CPU only
                        & (out[:, rep] == UNDEF)).nonzero()[:, 0]
                 if sel.numel():
                     self._indep_descent(
                         sel, lanes, root, outpos, rep, ftotal, numrep,
                         type_, out, out2, left, seg, recurse_tries, leaf,
                         parent_r)
-        out[seg & (out == UNDEF)] = NONE
+        out[seg & (out == UNDEF)] = NONE  # sync-ok: plain walk, CPU only
         if out2 is not None:
-            out2[seg & (out2 == UNDEF)] = NONE
+            out2[seg & (out2 == UNDEF)] = NONE  # sync-ok: plain walk, CPU only
 
     def _indep_descent(self, sel, lanes, root, outpos, rep, ftotal, numrep,
                        type_, out, out2, left, seg, recurse_tries, leaf,
@@ -421,7 +435,7 @@ class _PlainWalk:
                 torch.full_like(in_bi, numrep))
             empty = self.size[in_bi] == 0
             it = torch.zeros_like(in_bi)
-            ne = (~empty).nonzero()[:, 0]
+            ne = (~empty).nonzero()[:, 0]  # sync-ok: plain walk, CPU only
             if ne.numel():
                 it[ne] = self.choose(self.x[ln[ne]], in_bi[ne], r[ne],
                                      torch.full_like(ne, outpos))
@@ -439,7 +453,7 @@ class _PlainWalk:
             seen = (out[pend] == it[:, None]) & seg[pend]
             ok = live & ~seen.any(dim=1)
             if leaf:
-                rec = (ok & (it < 0)).nonzero()[:, 0]
+                rec = (ok & (it < 0)).nonzero()[:, 0]  # sync-ok: plain walk, CPU only
                 if rec.numel():
                     sub = out2[pend[rec]]
                     self.indep(ln[rec], cidx[rec], rep,
@@ -447,9 +461,9 @@ class _PlainWalk:
                                recurse_tries, 0, False, r[rec])
                     out2[pend[rec]] = sub
                     ok[rec] &= sub[:, rep] != NONE
-                dev = (ok & (it >= 0)).nonzero()[:, 0]
+                dev = (ok & (it >= 0)).nonzero()[:, 0]  # sync-ok: plain walk, CPU only
                 out2[pend[dev], rep] = it[dev]
-            chk = (ok & (itype == 0)).nonzero()[:, 0]
+            chk = (ok & (itype == 0)).nonzero()[:, 0]  # sync-ok: plain walk, CPU only
             if chk.numel():
                 ok[chk] &= ~self.is_out(ln[chk], it[chk])
             o = pend[ok]
@@ -515,7 +529,7 @@ class _PlainWalk:
                 for i in range(wbound):
                     src = w[:, i]
                     _, cidx, valid = self.classify(src)
-                    lanes = ((i < wsize) & valid).nonzero()[:, 0]
+                    lanes = ((i < wsize) & valid).nonzero()[:, 0]  # sync-ok: plain walk, CPU only
                     n = lanes.numel()
                     if n == 0:
                         continue
@@ -660,6 +674,7 @@ def _launch_plan(arrays: MapArrays, prog: RuleProgram, dev):
     if plan is not None and plan[0] == ids:
         return plan[2], plan[3]
     _check(arrays, names, dev)
+    device_metrics.note_rebuild("launch_plans")
     p = _Program()
     p.nsteps = len(prog.steps)
     for i, step in enumerate(prog.steps):
@@ -770,6 +785,30 @@ def build_rule_fn(cmap: CrushMap, ruleno: int, result_max: int,
     return fn, static, to_device(arrays_np, dev)
 
 
+def book_map_batch(sig, dt: float, n_xs: int, result_max: int,
+                   first_launch: bool, h2d_bytes: int, d2h_bytes: int,
+                   device_ids=None) -> None:
+    """Shared perf/device-plane booking for one batched-mapper call (the
+    one-device ``BatchedMapper`` and the mesh ``PlacementPlane`` both
+    land here, as in ``ceph_tpu``).  A signature's first call books
+    apart from steady-state latency; a mesh call books a row for every
+    mesh position.  ``dt`` is the host's time around the launches."""
+    if first_launch:
+        _pc.update((("map_calls", 1), ("xs_mapped", n_xs),
+                    ("jit_compiles", 1), ("jit_compile_time", dt)))
+    else:
+        _pc.update((("map_calls", 1), ("xs_mapped", n_xs),
+                    ("map_time", dt)), (("map_lat", dt),))
+    if device_ids:
+        device_metrics.record_mesh_launch(
+            "crush.mapper", sig, dt, device_ids,
+            h2d_bytes=h2d_bytes, d2h_bytes=d2h_bytes)
+    else:
+        device_metrics.record_launch(
+            "crush.mapper", sig, dt,
+            h2d_bytes=h2d_bytes, d2h_bytes=d2h_bytes)
+
+
 class BatchedMapper:
     """User-facing handle: one encode of the map (and of a choose_args
     set, if given), a compiled program per (rule, result_max), the
@@ -777,6 +816,8 @@ class BatchedMapper:
 
     >>> m = BatchedMapper(cmap)
     >>> res, lens = m.map_batch(ruleno, xs, result_max, weight)
+
+    A mesh of devices is ``parallel.placement.PlacementPlane``'s.
     """
 
     def __init__(self, cmap: CrushMap,
@@ -786,7 +827,9 @@ class BatchedMapper:
         self.cmap = cmap
         self.static, arrays_np = encode_map(cmap, choose_args)
         self.arrays = to_device(arrays_np, self.device)
+        device_metrics.note_rebuild("lowered_maps")
         self._progs = {}
+        self._compiled_sigs: set = set()   # (rule, result_max, (N,))
 
     def program(self, ruleno: int, result_max: int) -> RuleProgram:
         key = (ruleno, result_max)
@@ -800,6 +843,19 @@ class BatchedMapper:
         or tensors).  Returns (i32[N, result_max], i32[N]) on the
         mapper's device."""
         prog = self.program(ruleno, result_max)
-        return crush_rule_batched(self.arrays, prog,
-                                  as_i32(weight, self.device),
-                                  as_i32(xs, self.device))
+        xs = as_i32(xs, self.device)
+        weight = as_i32(weight, self.device)
+        t0 = time.monotonic()
+        out = crush_rule_batched(self.arrays, prog, weight, xs)
+        dt = time.monotonic() - t0
+        n = xs.numel()
+        sig = (ruleno, result_max, (n,))
+        first = sig not in self._compiled_sigs
+        if first:
+            self._compiled_sigs.add(sig)
+        # xs and weight cross host->device, the results and lengths
+        # (i32) back when consumed
+        book_map_batch(sig, dt, n, result_max, first,
+                       h2d_bytes=n * 4 + weight.numel() * 4,
+                       d2h_bytes=n * (result_max + 1) * 4)
+        return out

@@ -37,6 +37,7 @@ from typing import Dict, Optional
 
 import torch
 
+from ..common import device_metrics
 from ..device import resolve_device
 from . import constants as C
 from .hash import crush_hash32_2, crush_hash32_3
@@ -402,7 +403,7 @@ class _Spec:
                 devv[lanes] = torch.where(
                     win, dev.gather(1, pick).squeeze(1), devv[lanes])
                 # the round's one host sync: which lanes go on
-                lanes = lanes[~any_pick & (ft + K < p.tries)]
+                lanes = lanes[~any_pick & (ft + K < p.tries)]  # sync-ok: the round's one sync (a mask's length)
                 self.syncs += 1
             slot = outpos.clamp(0, R - 1).unsqueeze(1)
             out.scatter_(1, slot, torch.where(
@@ -469,7 +470,7 @@ class _Spec:
                 lf = lf - upd.to(torch.int64)
             out[lanes], out2[lanes], left[lanes] = o, o2, lf
             # the round's one host sync: which lanes go on
-            lanes = lanes[lf > 0]
+            lanes = lanes[lf > 0]  # sync-ok: the round's one sync (a mask's length)
             self.syncs += 1
         result = out2 if p.leafy else out
         result = torch.where(
@@ -545,6 +546,7 @@ class SpeculativeMapper:
         self.k_tries = k_tries
         self._encoded = encode_map(cmap, choose_args)
         self.arrays = to_device(self._encoded[1], self.device)
+        device_metrics.note_rebuild("lowered_maps")
         self._cache: Dict[tuple, _Spec] = {}
         self.rounds = 0
         self.syncs = 0

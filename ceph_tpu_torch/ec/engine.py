@@ -14,21 +14,93 @@ applies a matrix on the card:
 - packets (w, packetsize): kernel K3 (``gf2_packet.gf2_packet``).
 
 Each takes its kernel's plain version on CPU tensors.
+
+``BitCode.encode_batched_sharded`` splits a stripe batch over the
+devices of a mesh (``parallel.placement.Mesh``), one launch a shard on
+its device, and gathers the parities on the mesh's first device.
+
+Every encode and decode books into the ``ec.engine`` perf counters and
+the device plane (``common.device_metrics``) at ``ceph_tpu``'s entry
+points, under its signatures; the times are the host's clock around the
+launch (its enqueue time), with no synchronisation added.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..common import device_metrics
+from ..common.perf_counters import collection
+from ..device import (canonical_device, device_guard, gather,
+                      resolve_device)
+from ..parallel.meshctx import get_mesh as _data_plane_mesh
 from . import gf2_kernels, gf2_packet
 from .gfw import gf2_mat_inv
 from .layout import Layout
 
 DECODE_CACHE_SIZE = 512  # erasure signatures kept per code
+
+# -- instrumentation (process-global, ``ceph_tpu``'s names).  A
+# signature's first call books under jit_compiles/jit_compile_time (on
+# the card it builds the kernel library and the matrix's kernel form),
+# so steady-state latency histograms hold steady calls only.
+_pc = collection().create("ec.engine")
+for _k in ("encode_ops", "decode_ops", "encode_bytes",
+           "decode_bytes", "jit_compiles"):
+    _pc.add_u64_counter(_k)
+for _k in ("encode_time", "decode_time", "jit_compile_time"):
+    _pc.add_time(_k)
+_pc.add_histogram("encode_lat")
+_pc.add_histogram("decode_lat")
+# stripes per batched-encode dispatch (1 = the per-stripe path)
+_pc.add_histogram("ec_batch_size", min_value=1)
+# signatures already seen; a race only double-counts a first call
+_seen_sigs: set = set()
+# each kind's counter, byte, time and latency keys
+_KEYS = {kind: (f"{kind}_ops", f"{kind}_bytes", f"{kind}_time",
+                f"{kind}_lat") for kind in ("encode", "decode")}
+
+
+def book_batch(n_stripes: int) -> None:
+    """Record one batched-encode dispatch of ``n_stripes`` stripes (the
+    EncodeBatcher and the engine's batched paths book here; per-stripe
+    fallbacks book 1)."""
+    _pc.hist_add("ec_batch_size", n_stripes)
+
+
+def encode_batched_sharded(code: "BitCode", stripes, mesh):
+    """Module-level handle for ``BitCode.encode_batched_sharded``, the
+    name the contract registry addresses the sharded encode by."""
+    return code.encode_batched_sharded(stripes, mesh)
+
+
+def _account(kind: str, sig: tuple, dt: float, nbytes: int,
+             jitted: bool = True, nbytes_out: int = 0,
+             device_ids=None) -> None:
+    """Shared by every EC engine (``BitCode`` here and ``native_gf``'s
+    host engine, which passes jitted=False: it has no first-call build
+    to keep apart and books nothing into the device plane).  Mesh calls
+    pass ``device_ids`` (mesh positions) so each books a row."""
+    ops, nb, tkey, lat = _KEYS[kind]
+    if jitted and sig not in _seen_sigs:
+        _seen_sigs.add(sig)
+        _pc.update(((ops, 1), (nb, nbytes), ("jit_compiles", 1),
+                    ("jit_compile_time", dt)))
+    else:
+        _pc.update(((ops, 1), (nb, nbytes), (tkey, dt)), ((lat, dt),))
+    if jitted:
+        if device_ids:
+            device_metrics.record_mesh_launch(
+                "ec.engine", sig, dt, device_ids,
+                h2d_bytes=nbytes, d2h_bytes=nbytes_out, kind=kind)
+        else:
+            device_metrics.record_launch(
+                "ec.engine", sig, dt,
+                h2d_bytes=nbytes, d2h_bytes=nbytes_out, kind=kind)
 
 
 def device_matrix(bm: np.ndarray, device: torch.device,
@@ -39,12 +111,13 @@ def device_matrix(bm: np.ndarray, device: torch.device,
     K1's fragments are built on the current stream, which is waited for
     once here, so a launch on any stream may use them."""
     t = torch.from_numpy(np.ascontiguousarray(bm, np.uint8)).to(device)
+    device_metrics.note_rebuild("matrices")
     if layout is not None and layout.is_packet:
         aux = gf2_packet.packet_lists(t, layout.w)
     else:
         aux = gf2_kernels.gf2_fragments(t)
     if aux is not None:
-        torch.cuda.current_stream(device).synchronize()
+        torch.cuda.current_stream(device).synchronize()  # sync-ok: once per matrix, so any stream may read its fragments
     return t, aux
 
 
@@ -86,6 +159,13 @@ class BitCode:
         self._enc_dev, self._enc_frag = device_matrix(coding_bm, self.device,
                                                       self.layout)
         self._dec_cache: Dict[Tuple[int, ...], tuple] = {}
+        # the coding matrix on each other device of a mesh
+        self._mesh_mats: Dict[torch.device, tuple] = {}
+        # ceph_tpu's signature flag: the fused w=8 kernel runs (K1 on
+        # the card; its plain version on the CPU, as XLA's matmul runs
+        # off the TPU)
+        self._fused = self.device.type == "cuda" and \
+            not self.layout.is_packet and w == 8
 
     def _tensor(self, data) -> torch.Tensor:
         t = torch.as_tensor(data, dtype=torch.uint8, device=self.device)
@@ -96,29 +176,110 @@ class BitCode:
         self.layout.check(first.shape[-1])
         return apply(self.layout, bm, aux, data)
 
+    def _sig(self, tag: str, mat_shape, shape, *extra) -> tuple:
+        """``ceph_tpu``'s signature of a call (the shape key its jit
+        cache and its counters use)."""
+        return (tag, tuple(mat_shape), tuple(shape), self.layout.w,
+                self.layout.packetsize, *extra, self._fused)
+
+    def _check_stripes(self, stripes: torch.Tensor) -> None:
+        if stripes.dim() != 3 or stripes.shape[1] != self.k:
+            raise ValueError(f"expected [B, k={self.k}, L], got "
+                             f"{tuple(stripes.shape)}")
+
     # -- encode -------------------------------------------------------
     def encode(self, data) -> torch.Tensor:
         """u8[k, L] (or a sequence of k u8[L] rows, read where they lie)
         -> parity u8[m, L]."""
         if isinstance(data, (list, tuple)):
             data = [self._tensor(r) for r in data]
+            L = data[0].shape[-1]
         else:
             data = self._tensor(data)
             if data.dim() != 2 or data.shape[0] != self.k:
                 raise ValueError(f"expected [k={self.k}, L], got "
                                  f"{tuple(data.shape)}")
-        return self._apply(self._enc_dev, self._enc_frag, data)
+            L = data.shape[1]
+        t0 = time.monotonic()
+        out = self._apply(self._enc_dev, self._enc_frag, data)
+        _account("encode", self._sig("enc", self.coding_bm.shape,
+                                     (self.k, L)),
+                 time.monotonic() - t0, self.k * L, nbytes_out=self.m * L)
+        return out
 
-    def encode_batched(self, stripes) -> torch.Tensor:
+    def encode_batched(self, stripes, mesh=None) -> torch.Tensor:
         """u8[B, k, L] -> parity u8[B, m, L] in one kernel launch.  The
         kernel indexes the stripes in place, so nothing is transposed or
         copied on the way (but a word layout's virtual chunks);
-        byte-identical to B ``encode`` calls."""
+        byte-identical to B ``encode`` calls.
+
+        ``mesh``: a mesh of more than one device (or, when None, the
+        process-default ``parallel.placement.data_plane_mesh()`` when
+        it has more than one) routes through
+        ``encode_batched_sharded``."""
+        if mesh is None:
+            mesh = _data_plane_mesh()
+        if mesh is not None and mesh.size > 1:
+            return self.encode_batched_sharded(stripes, mesh)
         stripes = self._tensor(stripes)
-        if stripes.dim() != 3 or stripes.shape[1] != self.k:
-            raise ValueError(f"expected [B, k={self.k}, L], got "
-                             f"{tuple(stripes.shape)}")
-        return self._apply(self._enc_dev, self._enc_frag, stripes)
+        self._check_stripes(stripes)
+        B, k, L = stripes.shape
+        t0 = time.monotonic()
+        out = self._apply(self._enc_dev, self._enc_frag, stripes)
+        _account("encode", self._sig("encb", self.coding_bm.shape,
+                                     (B, k, L)),
+                 time.monotonic() - t0, B * k * L, nbytes_out=B * self.m * L)
+        book_batch(B)
+        return out
+
+    def _matrices_on(self, device: torch.device) -> tuple:
+        """The coding matrix and its kernel form on ``device``: the
+        code's own on its device, a copy made once on any other."""
+        if device == canonical_device(self.device):
+            return self._enc_dev, self._enc_frag
+        mats = self._mesh_mats.get(device)
+        if mats is None:
+            mats = self._mesh_mats[device] = device_matrix(
+                self.coding_bm, device, self.layout)
+        return mats
+
+    def encode_batched_sharded(self, stripes, mesh) -> torch.Tensor:
+        """The mesh path of ``encode_batched``: u8[B, k, L] (a tensor on
+        any device, or host memory) split into shards of ceil(B / n)
+        stripes over the n devices of ``mesh``, one launch a shard on
+        its device (all launched before any is waited for), and the
+        parities u8[B, m, L] gathered on the mesh's first device.  A
+        one-shard call is one launch and returns its output as it is.
+
+        ``ceph_tpu`` pads B with zero stripes to ``pad_batch(B, n)``;
+        here nothing is padded (each stripe is independent, so the
+        bytes are the same), but the call books that padded signature."""
+        from ..parallel.meshctx import pad_batch
+
+        if not isinstance(stripes, torch.Tensor):
+            stripes = torch.as_tensor(np.ascontiguousarray(stripes,
+                                                           np.uint8))
+        if stripes.dtype != torch.uint8:
+            raise TypeError(f"stripes must be uint8, got {stripes.dtype}")
+        self._check_stripes(stripes)
+        B, k, L = stripes.shape
+        self.layout.check(L)
+        t0 = time.monotonic()
+        outs = []
+        for _, dev, lo, hi in mesh.shards(B):
+            bm, aux = self._matrices_on(dev)
+            with device_guard(dev):
+                part = stripes[lo:hi].to(dev, non_blocking=True).contiguous()
+                outs.append(apply(self.layout, bm, aux, part))
+        out = gather(outs, mesh.devices[0]) if outs else torch.empty(
+            (0, self.m, L), dtype=torch.uint8, device=mesh.devices[0])
+        _account("encode",
+                 self._sig("encb_mesh", self.coding_bm.shape,
+                           (pad_batch(B, mesh.size), k, L), mesh.size),
+                 time.monotonic() - t0, B * k * L,
+                 nbytes_out=B * self.m * L, device_ids=mesh.device_ids)
+        book_batch(B)
+        return out
 
     def all_chunks(self, data) -> torch.Tensor:
         """u8[k, L] -> u8[k+m, L]: systematic data + parity."""
@@ -150,11 +311,16 @@ class BitCode:
             raise ValueError("need at least k chunks")
         present = tuple(avail[:self.k])
         inv, aux = self._decode_mats(present)
+        rows = [self._tensor(chunks[i]) for i in present]
+        L = rows[0].shape[-1]
         # the kernel reads the survivors where they lie (a table of row
         # pointers); nothing is stacked on the card but a word layout's
         # virtual chunks
-        return self._apply(inv, aux,
-                           [self._tensor(chunks[i]) for i in present])
+        t0 = time.monotonic()
+        out = self._apply(inv, aux, rows)
+        _account("decode", self._sig("dec", inv.shape, (self.k, L)),
+                 time.monotonic() - t0, self.k * L, nbytes_out=self.k * L)
+        return out
 
     def decode(self, want: Sequence[int],
                chunks: Dict[int, object]) -> Dict[int, torch.Tensor]:

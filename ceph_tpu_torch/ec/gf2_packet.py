@@ -92,14 +92,14 @@ def index_lists(bm_bits: torch.Tensor, w: int) -> torch.Tensor:
     as ``(c << 16) | r'``, each row starting at a multiple of 4 entries
     (pads, -1, between rows)."""
     rows = bm_bits.shape[0]
-    nz = (bm_bits & 1).nonzero()            # row-major order
-    counts = torch.bincount(nz[:, 0], minlength=rows)
+    nz = (bm_bits & 1).nonzero()  # sync-ok: once per matrix (row-major order)
+    counts = torch.bincount(nz[:, 0], minlength=rows)  # sync-ok: once per matrix
     padded = (counts + 3) // 4 * 4
     starts = padded.cumsum(0) - padded
     col = nz[:, 1]
     first = (counts.cumsum(0) - counts)[nz[:, 0]]
     at = starts[nz[:, 0]] + torch.arange(len(nz), device=nz.device) - first
-    entries = torch.full((int(padded.sum()),), -1, dtype=torch.int64,
+    entries = torch.full((int(padded.sum()),), -1, dtype=torch.int64,  # sync-ok: the lists' length, once per matrix
                          device=bm_bits.device)
     entries[at] = (torch.div(col, w, rounding_mode="floor") << 16) | (col % w)
     return torch.cat([starts, starts + counts, entries]).to(

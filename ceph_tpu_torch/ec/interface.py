@@ -242,17 +242,24 @@ class ErasureCode:
         Sub-chunked codes (Clay: its coupling geometry follows the chunk
         length) and mixed sizes fall back to one ``encode`` an object.
 
-        ``mesh``: the sharded path over several devices is not ported
-        (``ROADMAP.md`` queue 1 item 5) and raises."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "encode_batched over a mesh is not ported yet "
-                "(ROADMAP.md queue 1 item 5)")
+        ``mesh``: a mesh of more than one device (explicit, or the
+        process-default data-plane mesh when None) splits the stripe
+        batch u8[B, k, L] over its devices through the engine's
+        ``encode_batched_sharded``, for the plugins whose parity is one
+        ``BitCode`` (jerasure and isa, as in ``ceph_tpu``); layered and
+        sub-chunked plugins keep the path above."""
         raws = list(raws)
         want = set(want_to_encode)
         if len(raws) <= 1 or self.get_sub_chunk_count() != 1 or \
                 len({flat_u8(r).numel() for r in raws}) != 1:
             return [self.encode(want, r) for r in raws]
+        if mesh is None:
+            from ..parallel.meshctx import get_mesh
+
+            mesh = get_mesh()
+        code = self._mesh_code()
+        if mesh is not None and mesh.size > 1 and code is not None:
+            return self._encode_batched_mesh(want, raws, code, mesh)
         k = self.get_data_chunk_count()
         parts = [self.encode_prepare(r) for r in raws]
         B, L = len(parts), parts[0].shape[1]
@@ -264,6 +271,31 @@ class ErasureCode:
         ids = self._encoded_ids()
         return [{i: chunks[i][b * L:(b + 1) * L] for i in want if i in ids}
                 for b in range(B)]
+
+    def _mesh_code(self):
+        """The code ``encode_batched`` shards over a mesh: None here;
+        a plugin whose parity is one ``BitCode`` returns it."""
+        return None
+
+    def _encode_batched_mesh(self, want: Set[int], raws, code,
+                             mesh) -> List[Dict[int, torch.Tensor]]:
+        """The mesh half of ``encode_batched``: the prepared objects
+        stacked into the stripe batch u8[B, k, L], split over the mesh
+        by the engine, and each object's chunks assembled as
+        ``encode_chunks`` would (parity j at ``chunk_index(k + j)``).
+        The parities live on the mesh's first device."""
+        parts = [self.encode_prepare(r) for r in raws]
+        stripes = torch.stack(parts)                     # u8[B, k, L]
+        parity = code.encode_batched_sharded(stripes, mesh)  # u8[B, m, L]
+        k = self.get_data_chunk_count()
+        n = self.get_chunk_count()
+        out: List[Dict[int, torch.Tensor]] = []
+        for b in range(len(parts)):
+            chunks = {self.chunk_index(i): stripes[b, i] for i in range(k)}
+            for j in range(k, n):
+                chunks[self.chunk_index(j)] = parity[b, j - k]
+            out.append({i: chunks[i] for i in want if i in chunks})
+        return out
 
     # -- decode -------------------------------------------------------
     def decode(self, want_to_read: Iterable[int], chunks: Dict[int, object],

@@ -80,6 +80,11 @@ class SingleCode(ErasureCode):
         self.device = self._code.device
 
     # -- data path ----------------------------------------------------
+    def _mesh_code(self):
+        """The ``BitCode`` a mesh shards (not the native engine, which
+        has no sharded path)."""
+        return self._code if isinstance(self._code, BitCode) else None
+
     def encode_chunks(self, want_to_encode: Set[int],
                       chunks: Dict[int, torch.Tensor]) -> None:
         # the data rows are read where they lie (K1's row table)

@@ -18,6 +18,7 @@ apply the same generator matrices over the same field (0x11D).
 from __future__ import annotations
 
 import ctypes
+import time
 from typing import Dict, Sequence
 
 import numpy as np
@@ -95,10 +96,16 @@ class NativeMatrixCode:
         self._dec_cache: Dict[tuple, np.ndarray] = {}
 
     def encode(self, data) -> torch.Tensor:
+        from .engine import _account
+
         data = _host(data)
         if data.shape[0] != self.k:
             raise ValueError(f"expected [k={self.k}, L], got {data.shape}")
-        return torch.from_numpy(gf8_matmul(self.G[self.k:], data))
+        t0 = time.monotonic()
+        out = gf8_matmul(self.G[self.k:], data)
+        _account("encode", (), time.monotonic() - t0, int(data.size),
+                 jitted=False)
+        return torch.from_numpy(out)
 
     def decode_data(self, chunks: Dict[int, object]) -> torch.Tensor:
         avail = sorted(chunks)
@@ -112,8 +119,14 @@ class NativeMatrixCode:
             if len(self._dec_cache) >= 512:  # IsaTableCache-style bound
                 self._dec_cache.pop(next(iter(self._dec_cache)))
             self._dec_cache[present] = dm
-        return torch.from_numpy(
-            gf8_matmul(dm, _host([chunks[i] for i in present])))
+        from .engine import _account
+
+        stack = _host([chunks[i] for i in present])
+        t0 = time.monotonic()
+        out = gf8_matmul(dm, stack)
+        _account("decode", (), time.monotonic() - t0, int(stack.size),
+                 jitted=False)
+        return torch.from_numpy(out)
 
     def decode(self, want: Sequence[int],
                chunks: Dict[int, object]) -> Dict[int, torch.Tensor]:

@@ -143,12 +143,12 @@ def build_pgs_by_osd(m: OSDMap,
             if mappers is not None:
                 pm = mappers.get(pool_id)
                 if pm is None or pm.m is not m:
-                    pm = PoolMapper(m, pool_id, dev)
+                    pm = PoolMapper(m, pool_id, device=dev)
                     mappers[pool_id] = pm
                 else:
                     pm.refresh_tables()
             else:
-                pm = PoolMapper(m, pool_id, dev)
+                pm = PoolMapper(m, pool_id, device=dev)
             out = pm.map_all()
             _tally(pgs_by_osd, pool_id, out["up"], out["up_len"])
         else:

@@ -28,9 +28,11 @@ import torch
 
 from ..crush.constants import CRUSH_ITEM_NONE as NONE
 from ..crush.hash import crush_hash32_2
-from ..crush.map_arrays import as_i32, encode_map, to_device
+from ..crush.map_arrays import as_i32, encode_map
 from ..crush.mapper import _rule_steps, compile_rule, crush_rule_batched
-from ..device import resolve_device
+from ..device import (canonical_device, device_guard, gather,
+                      resolve_device)
+from ..parallel.placement import Mesh, replicate_arrays
 from .osdmap import (DEFAULT_PRIMARY_AFFINITY, FLAG_HASHPSPOOL,
                      MAX_PRIMARY_AFFINITY, OSD_EXISTS, OSD_UP, OSDMap,
                      PgPool)
@@ -133,6 +135,20 @@ def _lower_tables(m: OSDMap, pool_id: int, pool: PgPool) -> _DenseTables:
     return t
 
 
+@dataclass
+class _Shard:
+    """A range [lo, hi) of the pool's PGs on one device, with its slice
+    of the pps seeds and of the exception tables."""
+
+    dev: torch.device
+    lo: int
+    hi: int
+    pps: torch.Tensor
+    pps_i32: torch.Tensor
+    idx: torch.Tensor
+    trow: dict
+
+
 class PoolMapper:
     """Batched ``pg_to_up_acting`` for one pool on ``device``.
 
@@ -142,22 +158,36 @@ class PoolMapper:
     The map's CRUSH arrays (with the pool's choose_args), the pps seed
     of every PG and the exception tables are lowered once and stay on
     the device.
+
+    ``mesh`` (``parallel.placement.Mesh``; ``device`` is then its first
+    device) splits the PG axis into shards of ceil(pg_num / size), each
+    with its slice of the exception tables, over the mesh's devices:
+    the map's arrays and the OSD vectors go to each distinct device,
+    every stage runs a shard where it lies (one K2 launch a shard, all
+    launched before any is waited for), and the outputs are gathered
+    on the first device.  Every PG is independent, so the outputs equal
+    the unsplit pipeline's.
     """
 
-    def __init__(self, m: OSDMap, pool_id: int, device="cuda"):
-        self.device = dev = resolve_device(device)
+    def __init__(self, m: OSDMap, pool_id: int, mesh=None, device="cuda"):
+        self.mesh = mesh
+        self.device = dev = mesh.devices[0] if mesh is not None \
+            else canonical_device(resolve_device(device))
         self.m = m
         self.pool_id = pool_id
         self.pool = pool = m.pools[pool_id]
         self.R = pool.size
         self.shift = pool.can_shift_osds()
         self.prog = self.arrays = None
+        self._arrays_on = {}
         if pool.crush_rule in m.crush.rules:
             static, arrays = encode_map(m.crush,
                                         m.crush.choose_args.get(pool_id))
             self.prog = compile_rule(
                 static, _rule_steps(m.crush, pool.crush_rule), self.R)
-            self.arrays = to_device(arrays, dev)
+            self._arrays_on = replicate_arrays(
+                arrays, mesh if mesh is not None else Mesh([dev]))
+            self.arrays = self._arrays_on[dev]
         # pg_pool_t::raw_pg_to_pps (osd_types.cc:1798): a u32 per PG
         ps = torch.arange(pool.pg_num, dtype=torch.int64, device=dev)
         mm = _stable_mod(ps, pool.pgp_num, pool.pgp_num_mask)
@@ -175,6 +205,19 @@ class PoolMapper:
         tabs = _lower_tables(self.m, self.pool_id, self.pool)
         self._trow = {k: torch.from_numpy(v).to(self.device, torch.int64)
                       for k, v in vars(tabs).items() if v is not None}
+        n = self.pool.pg_num
+        spans = [(self.device, 0, n)] if self.mesh is None else \
+            [(d, lo, hi) for _, d, lo, hi in self.mesh.shards(n)] or \
+            [(self.device, 0, 0)]
+        self._shards = []
+        for d, lo, hi in spans:
+            with device_guard(d):
+                self._shards.append(_Shard(
+                    d, lo, hi, self.pps[lo:hi].to(d, non_blocking=True),
+                    self.pps_i32[lo:hi].to(d, non_blocking=True),
+                    self.idx.to(d, non_blocking=True),
+                    {k: v[lo:hi].to(d, non_blocking=True)
+                     for k, v in self._trow.items()}))
 
     def runtime_args(self):
         """The OSDMap's weights (u32 as int32), states and primary
@@ -202,8 +245,9 @@ class PoolMapper:
         per-OSD overrides of the map's (numpy, lists or tensors; u32 as
         bit patterns); the primary-affinity stage runs when the map has
         affinities or ``paff`` is given.  Returns a dict of int32
-        tensors on the device: up [pg, R], up_len [pg], up_primary [pg],
-        acting [pg, R], acting_len [pg], acting_primary [pg]."""
+        tensors on the device (a mesh's first device): up [pg, R],
+        up_len [pg], up_primary [pg], acting [pg, R], acting_len [pg],
+        acting_primary [pg]."""
         w0, s0, p0 = self.runtime_args() \
             if any(v is None for v in (weight, state, paff)) \
             else (None, None, None)
@@ -213,11 +257,23 @@ class PoolMapper:
         state = (s0 if state is None else as_i32(state, dev)).to(torch.int64)
         paff = (p0 if paff is None else as_i32(paff, dev)).to(torch.int64) \
             & M32
-        idx, R, t = self.idx, self.R, self._trow
-        n = self.pool.pg_num
+        vectors = {dev: (weight, state, paff)}
+        outs = []
+        for sh in self._shards:
+            with device_guard(sh.dev):
+                if sh.dev not in vectors:
+                    vectors[sh.dev] = tuple(v.to(sh.dev, non_blocking=True)
+                                            for v in vectors[dev])
+                outs.append(self._map_rows(sh, *vectors[sh.dev], has_aff))
+        return {k: gather([o[k] for o in outs], dev) for k in outs[0]}
+
+    def _map_rows(self, sh: _Shard, weight, state, paff, has_aff: bool):
+        """The pipeline over one shard's PGs, on its device."""
+        dev, idx, R, t = sh.dev, sh.idx, self.R, sh.trow
+        n = sh.hi - sh.lo
         if self.prog is not None:
-            raw, rlen = crush_rule_batched(self.arrays, self.prog, weight,
-                                           self.pps_i32)
+            raw, rlen = crush_rule_batched(self._arrays_on[dev], self.prog,
+                                           weight, sh.pps_i32)
             raw, rlen = raw.to(torch.int64), rlen.to(torch.int64)
         else:
             raw = torch.full((n, R), NONE, dtype=torch.int64, device=dev)
@@ -270,7 +326,7 @@ class PoolMapper:
         if has_aff:
             a = paff[up.clamp(0, paff.numel() - 1)]
             nondefault = valid & (a != DEFAULT_PRIMARY_AFFINITY)
-            h = crush_hash32_2(self.pps[:, None], up) >> 16
+            h = crush_hash32_2(sh.pps[:, None], up) >> 16
             accept = valid & ~((a < MAX_PRIMARY_AFFINITY) & (h >= a))
             pos = torch.where(accept.any(dim=1), _first(accept),
                               torch.where(any_valid, _first(valid), -1))

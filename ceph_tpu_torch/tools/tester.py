@@ -14,7 +14,10 @@ mappings come back to the host; the Python lists of a bad row are made
 only when ``RuleReport.bad`` is read.  The other engines give the same
 report: ``device="cpu"`` the plain walk, ``native=True`` the native C++
 engine and ``scalar=True`` the scalar ``mapper_ref``, all on the host.
-``mesh=`` (a sweep split over several cards) is not ported yet.
+``mesh=`` (``parallel.placement.Mesh``) splits the sweep over the
+mesh's devices through a ``PlacementPlane``: one K2 launch a shard,
+and ``test_rule`` takes the plane's all-reduced tally as its per-device
+counts.
 
 A tester lowers its map once per engine and device, at the first sweep
 that needs it, and keeps the result for every later ``test_rule`` and
@@ -37,7 +40,7 @@ from ..crush.mapper_ref import crush_do_rule
 from ..crush.native import NativeMapper
 from ..crush.wrapper import CrushWrapper
 from ..device import resolve_device
-from ..parallel.placement import utilization
+from ..parallel.placement import Mesh, PlacementPlane, utilization
 
 M32 = 0xFFFFFFFF
 
@@ -83,6 +86,7 @@ class CrushTester:
             self.weights.append(0x10000)
         self._mappers: Dict[str, BatchedMapper] = {}
         self._native: Optional[NativeMapper] = None
+        self._planes: Dict[Mesh, PlacementPlane] = {}
 
     def mapper(self, device) -> BatchedMapper:
         """The map lowered for K2 (or the plain walk) on ``device``,
@@ -91,6 +95,13 @@ class CrushTester:
         if str(dev) not in self._mappers:
             self._mappers[str(dev)] = BatchedMapper(self.w.crush, device=dev)
         return self._mappers[str(dev)]
+
+    def plane(self, mesh: Mesh) -> PlacementPlane:
+        """The map lowered onto ``mesh``'s devices, made at its first
+        use."""
+        if mesh not in self._planes:
+            self._planes[mesh] = PlacementPlane(self.w.crush, mesh=mesh)
+        return self._planes[mesh]
 
     def native_mapper(self) -> NativeMapper:
         """The map lowered for the native engine, made at its first
@@ -112,20 +123,30 @@ class CrushTester:
         """Map x in [min_x, max_x] (with ``pool``, ``hash32_2(x, pool)``,
         CrushTester.cc:570-572) through the rule: (xs int64[N] as u32,
         rows int32[N, num_rep] padded with CRUSH_ITEM_NONE, lengths
-        int32[N]), on the card for the default engine, else on the
-        CPU."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "a sweep over a mesh of cards needs the mesh plane "
-                "(ROADMAP.md queue 1 item 5), which is not ported")
+        int32[N]), on the card for the default engine (on a mesh, on
+        its first device), else on the CPU."""
+        return self._sweep(ruleno, num_rep, min_x, max_x, pool, scalar,
+                           native, device, mesh)[:3]
+
+    def _sweep(self, ruleno, num_rep, min_x, max_x, pool, scalar, native,
+               device, mesh, gather_stats=False):
+        """``sweep``, and the plane's tally when a mesh sweep is asked
+        for it (else None)."""
         cmap = self.w.crush
-        dev = torch.device("cpu") if scalar or native \
-            else resolve_device(device)
+        if mesh is not None:
+            dev = mesh.devices[0]
+        else:
+            dev = torch.device("cpu") if scalar or native \
+                else resolve_device(device)
         xs = torch.arange(min_x, max_x + 1, dtype=torch.int64,
                           device=dev) & M32
         if pool is not None:
             xs = crush_hash32_2(xs, pool)
         weights = np.asarray(self.weights, np.uint32)
+        if mesh is not None:
+            out = self.plane(mesh).map_batch(ruleno, as_i32(xs, dev),
+                                             num_rep, weights, gather_stats)
+            return (xs,) + tuple(out) + (() if gather_stats else (None,))
         if scalar:
             rows = np.full((xs.numel(), num_rep), CRUSH_ITEM_NONE, np.int32)
             lens = np.zeros(xs.numel(), np.int32)
@@ -133,25 +154,29 @@ class CrushTester:
                 r = crush_do_rule(cmap, ruleno, x, num_rep, self.weights)
                 rows[i, :len(r)] = r
                 lens[i] = len(r)
-            return xs, torch.from_numpy(rows), torch.from_numpy(lens)
+            return xs, torch.from_numpy(rows), torch.from_numpy(lens), None
         if native:
             rows, lens = self.native_mapper().map_batch(
                 ruleno, xs.numpy(), num_rep, weights)
-            return xs, torch.from_numpy(rows), torch.from_numpy(lens)
+            return xs, torch.from_numpy(rows), torch.from_numpy(lens), None
         rows, lens = self.mapper(dev).map_batch(
             ruleno, as_i32(xs, dev), num_rep, weights)
-        return xs, rows, lens
+        return xs, rows, lens, None
 
     def report(self, ruleno: int, num_rep: int, min_x: int, max_x: int,
                xs: torch.Tensor, rows: torch.Tensor, lens: torch.Tensor,
-               collect_mappings: bool = False) -> RuleReport:
+               collect_mappings: bool = False,
+               counts: Optional[torch.Tensor] = None) -> RuleReport:
         """The stats pass over a sweep's output, on its device: the
-        per-device tally, the size histogram and the bad rows; only
-        they (and the mappings, if asked for) come to the host."""
+        per-device tally (``counts``, a mesh plane's all-reduced tally,
+        when given), the size histogram and the bad rows; only they
+        (and the mappings, if asked for) come to the host."""
         n_dev = self.w.crush.max_devices
         rep = RuleReport(ruleno, num_rep, min_x, max_x)
         rep.total = xs.numel()
-        stored = utilization(rows, lens, n_dev).cpu().numpy()   # int64
+        if counts is None:
+            counts = utilization(rows, lens, n_dev)
+        stored = counts.cpu().numpy().astype(np.int64)
         sizes = torch.bincount(lens.to(torch.int64)).tolist()
         rep.size_counts = {s: c for s, c in enumerate(sizes) if c}
         rep.device_stored = stored
@@ -174,11 +199,13 @@ class CrushTester:
                   scalar: bool = False, native: bool = False,
                   collect_mappings: bool = False, mesh=None,
                   device="cuda") -> RuleReport:
-        """One sweep and its stats (``sweep``, then ``report``)."""
-        xs, rows, lens = self.sweep(ruleno, num_rep, min_x, max_x, pool,
-                                    scalar, native, device, mesh)
+        """One sweep and its stats (``sweep``, then ``report``; over a
+        mesh the plane's tally is the per-device count)."""
+        xs, rows, lens, counts = self._sweep(
+            ruleno, num_rep, min_x, max_x, pool, scalar, native, device,
+            mesh, gather_stats=mesh is not None)
         return self.report(ruleno, num_rep, min_x, max_x, xs, rows, lens,
-                           collect_mappings)
+                           collect_mappings, counts)
 
     # -- compare (CrushTester.cc:682-747) ------------------------------
     def compare(self, other: "CrushTester", ruleno: int, num_rep: int,

@@ -116,6 +116,25 @@ Phases (any failure raises and the script exits non-zero):
    the golden rows; K=8, rule 1 and the tie map too; both timed, with
    the speculative mapper's rounds and host syncs.
 
+10. The mesh data plane, with every launch count at 0, on ``map_big10k``
+   and 4 MiB objects, each over a one-device mesh and over [cuda:0,
+   cuda:0] (two shards on the one card): ``PlacementPlane.map_batch``
+   (rule 0, numrep 3, 1,048,576 xs, with the tally) equal to
+   ``BatchedMapper`` plus ``utilization`` and to the golden rows, one
+   and two K2 launches a call; ``encode_batched_sharded`` of RS(8,3) on
+   [64, 8, 512 KiB] equal to ``encode_batched``, one and two K1
+   launches; both timed by CUDA events beside the host time the device
+   plane booked, K2 and K1 alone and their bounds.  Then over the two
+   shards: ``ErasureCode.encode_batched(mesh=)`` of 64 x 4 MiB objects
+   (isa 8+3 on K1, jerasure cauchy_good 4+2 packetsize 8 on K3),
+   ``PoolMapper(mesh=)`` on phase 5's cluster (pools 1 and 2) and
+   ``CrushTester.test_rule(mesh=)`` over 1 M PGs, each equal to the call
+   without a mesh; the ``EncodeBatcher`` under 16 threads of 4 writes
+   (isa 8+3, every chunk equal to ``encode``); ``contracts.verify_all``
+   and the steady-state gate on the card (not counted); last the device
+   plane's report (``per_device``, ``mesh_device_report``, the counter
+   dump).
+
 The scalar oracles run in worker processes (spawned, stopped at the
 end) beside the card's work.
 Tolerance is zero everywhere: every output is an integer.  Kernel times
@@ -127,13 +146,14 @@ operations over its peak rate for their type (published H100 SXM
 figures; K1's 1-bit products are counted at the int8 rate, which is
 lower).  It prints
 the card's name and power limit, one line per kernel, one ``kernels``
-JSON line (K1's launches: phases 4, 8 and 9; K2's: phase 4's, one a
+JSON line (K1's launches: phases 4, 8, 9 and 10; K2's: phase 4's, one a
 ``map_all`` call in phases 5 and 6, one a sweep in phase 7, one a rule
-in phase 8 and phase 9's cross-check; K3's: phase 9), K2's variants, the
+in phase 8, phase 9's cross-check and one a shard in phase 10; K3's:
+phases 9 and 10), K2's variants, the
 flagship rates, the pipeline's rates, the balancer's records and time
 split, crushtool's record, one ``ec_plugins`` line per profile and
 workload, phase 9's ``layouts``, ``k3``, ``words`` and ``spec`` lines,
-and last the contract line
+phase 10's ``mesh`` lines, and last the contract line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the rest of the repository beside it, it exits non-zero and prints no
 result.
@@ -1519,10 +1539,7 @@ def phase_crushtool(dev, workdir, card, n_rep=SWEEP_REP, n_ec=SWEEP_EC,
             utilization(rows, lens, n_dev),
             torch.bincount(lens.to(torch.int64)),
             (lens != numrep).nonzero()), 5)
-        # utilization's bincount: its int32 entries read once, its
-        # int64 counts written once
-        rec["tally_bound_ms"] = (rows.numel() * 4 + (n_dev + 1) * 8) \
-            / HBM_BYTES_PER_S * 1e3
+        rec["tally_bound_ms"] = tally_bound_ms(rows, lens, n_dev)
         # what the sweep and the report, timed apart, leave of a call:
         # negative where the host's work overlaps the card's in a call
         rec["rest_s"] = rec["test_rule_s"] - rec["sweep_host_s"] \
@@ -1718,6 +1735,13 @@ class K1Tap:
                 else data.numel() // k
             nbytes += (k + m) * cols + bm.numel()
         return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def tally_bound_ms(rows, lens, n_dev):
+    """``utilization``'s byte bound: the results and the lengths (int32)
+    read once, the int64 counts written once."""
+    return (rows.numel() * 4 + lens.numel() * 4 + n_dev * 8) \
+        / HBM_BYTES_PER_S * 1e3
 
 
 def run_tool_err(tool, args):
@@ -2546,6 +2570,337 @@ def phase_spec(dev):
     return out, k2_launches
 
 
+
+# -- phase 10 ---------------------------------------------------------
+
+MESH_XS = 1 << 20            # xs through the placement plane (rule 0)
+MESH_STRIPES = (64, 8, 512 << 10)   # RS(8,3) stripes of the sharded encode
+MESH_OBJECTS = 64            # 4 MiB objects of the plugins' mesh encode
+MESH_THREADS, MESH_WRITES = 16, 4   # the EncodeBatcher's writers
+MESH_ITERS = 10
+MESH_PROFILES = (("isa", {"k": "8", "m": "3"}),
+                 ("jerasure", {"technique": "cauchy_good", "k": "4",
+                               "m": "2", "packetsize": "8"}))
+
+
+def launch_counts():
+    """(K1, K2, K3) launch counts."""
+    from ceph_tpu_torch.crush import mapper
+    from ceph_tpu_torch.ec import gf2_kernels, gf2_packet
+
+    return (gf2_kernels.gf2_matmul_w8.launches,
+            mapper.crush_rule_batched.launches, gf2_packet.gf2_packet.launches)
+
+
+def set_launch_counts(counts):
+    from ceph_tpu_torch.crush import mapper
+    from ceph_tpu_torch.ec import gf2_kernels, gf2_packet
+
+    (gf2_kernels.gf2_matmul_w8.launches, mapper.crush_rule_batched.launches,
+     gf2_packet.gf2_packet.launches) = counts
+
+
+def counted(fn, want, label):
+    """``fn()``, asserting the (K1, K2, K3) launches it made."""
+    before = launch_counts()
+    out = fn()
+    got = tuple(a - b for a, b in zip(launch_counts(), before))
+    if got != want:
+        raise AssertionError(f"{label}: launches (K1, K2, K3) {got}, "
+                             f"expected {want}")
+    return out
+
+
+def booked_ms(table_before, key):
+    """Mean host ms a call that the device plane booked under ``key``
+    since ``table_before`` (the enqueue time around the launches)."""
+    from ceph_tpu_torch.common import device_metrics
+
+    now = device_metrics.shape_table()[key]
+    old = table_before.get(key, {"count": 0, "time_s": 0.0})
+    return (now["time_s"] - old["time_s"]) / (now["count"] - old["count"]) \
+        * 1e3
+
+
+def mesh_cluster(cmap, dev):
+    """Phase 5's cluster (``build_cluster`` with its exception entries)
+    for a phase 10 run on its own."""
+    from ceph_tpu_torch.osdmap.pipeline import PoolMapper
+
+    m, out_osds = build_cluster(cmap)
+    rng = np.random.default_rng(13)
+    for spec in (POOL_REP, POOL_EC):
+        pid = spec["pool_id"]
+        base = PoolMapper(m, pid, device=dev).map_all()
+        add_exceptions(m, pid, base["up"].cpu().numpy(),
+                       base["up_len"].cpu().numpy(), rng, out_osds)
+    return m
+
+
+def phase_mesh(dev, card, m=None):
+    """The mesh data plane on ``map_big10k`` and 4 MiB objects, on a
+    one-device mesh and on [dev, dev] (two shards on one card): the
+    placement plane against ``BatchedMapper`` and the golden rows, the
+    sharded RS(8,3) encode against ``encode_batched``, the plugins'
+    ``encode_batched(mesh=)``, ``PoolMapper(mesh=)`` on phase 5's
+    cluster ``m``, ``CrushTester.test_rule(mesh=)``, the EncodeBatcher
+    under 16 threads, the contracts and the steady-state gate on the
+    card, then the device plane's report.  Every call's launches are
+    asserted; bare kernel timings and the contracts' launches are taken
+    back out of the counts.  Returns the record."""
+    import threading
+
+    import torch
+
+    from ceph_tpu_torch.analysis import contracts
+    from ceph_tpu_torch.common import device_metrics
+    from ceph_tpu_torch.common.perf_counters import collection
+    from ceph_tpu_torch.crush.map_arrays import as_i32
+    from ceph_tpu_torch.crush.mapper import (N_ALGS, BatchedMapper,
+                                             crush_rule_batched)
+    from ceph_tpu_torch.ec import engine
+    from ceph_tpu_torch.ec.batcher import EncodeBatcher
+    from ceph_tpu_torch.ec.registry import factory
+    from ceph_tpu_torch.ec.rs import RSCode
+    from ceph_tpu_torch.osdmap.pipeline import PoolMapper
+    from ceph_tpu_torch.parallel.meshctx import pad_batch
+    from ceph_tpu_torch.parallel.placement import (PlacementPlane,
+                                                   make_mesh,
+                                                   mesh_device_report,
+                                                   utilization)
+    from ceph_tpu_torch.tools.tester import CrushTester
+
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    meshes = {1: make_mesh([dev]), 2: make_mesh([dev, dev])}
+
+    # -- the placement plane: rule 0, numrep 3, 1 M xs, with the tally
+    cmap, cases = load_map("map_big10k")
+    D = cmap.max_devices
+    w = as_i32(np.asarray(cases[0]["weight"], np.uint32), dev)
+    xs = torch.arange(MESH_XS, dtype=torch.int32, device=dev)
+    bm = BatchedMapper(cmap, device=dev)
+    want_res, want_lens = counted(lambda: bm.map_batch(0, xs, 3, w),
+                                  (0, 1, 0), "BatchedMapper")
+    want_counts = utilization(want_res, want_lens, D).to(torch.int32)
+    planes = {}
+    for n_dev, mesh in meshes.items():
+        plane = planes[n_dev] = PlacementPlane(cmap, mesh=mesh)
+        res, lens, tally = counted(
+            lambda: plane.map_batch(0, xs, 3, w, gather_stats=True),
+            (0, n_dev, 0), f"plane on {n_dev} shard(s)")
+        if not (torch.equal(res, want_res) and torch.equal(lens, want_lens)
+                and tally.dtype == torch.int32
+                and torch.equal(tally, want_counts)):
+            raise AssertionError(f"the plane on {n_dev} shard(s) differs "
+                                 f"from BatchedMapper + utilization")
+        golden_check(cases[0], res, lens, f"plane on {n_dev} shard(s)")
+    table = device_metrics.shape_table()
+    for n_dev, plane in planes.items():
+        out[f"plane{n_dev}_ms"] = cuda_ms(
+            lambda i: counted(lambda: plane.map_batch(
+                0, xs, 3, w, gather_stats=True), (0, n_dev, 0), "timed"),
+            MESH_ITERS)
+        out[f"plane{n_dev}_booked_ms"] = booked_ms(
+            table, f"crush.mapper|{(0, 3, pad_batch(MESH_XS, n_dev), n_dev, True)}")
+    saved = launch_counts()
+    prog = bm.program(0, 3)
+    out["k2_ms"] = cuda_ms(lambda i: crush_rule_batched(bm.arrays, prog, w,
+                                                        xs), MESH_ITERS)
+    out["tally_ms"] = cuda_ms(lambda i: utilization(want_res, want_lens, D),
+                              MESH_ITERS)
+    out["tally_bound_ms"] = tally_bound_ms(want_res, want_lens, D)
+    draws = torch.zeros((MESH_XS, N_ALGS), dtype=torch.int32, device=dev)
+    crush_rule_batched(bm.arrays, prog, w, xs, draws=draws)
+    out["k2_bound_ms"], out["k2_bound_by"], _ = k2_bound_ms(
+        bm.arrays, prog, MESH_XS, w, draws)
+    del draws
+    set_launch_counts(saved)
+    log(f"mesh plane: map_big10k rule 0, {MESH_XS} xs, equal to "
+        f"BatchedMapper, its tally and the golden rows on 1 and 2 shards; "
+        f"plane1_ms={out['plane1_ms']:.4f} (booked "
+        f"{out['plane1_booked_ms']:.4f} host) plane2_ms="
+        f"{out['plane2_ms']:.4f} (booked {out['plane2_booked_ms']:.4f}) "
+        f"k2_ms={out['k2_ms']:.4f} tally_ms={out['tally_ms']:.4f} "
+        f"tally_bound_ms={out['tally_bound_ms']:.4f} "
+        f"k2_bound_ms={out['k2_bound_ms']:.4f} ({out['k2_bound_by']})")
+
+    # -- the sharded encode: RS(8,3) over [64, 8, 512 KiB]
+    bc = RSCode(8, 3, device=dev)._bit
+    gen = torch.Generator(device=dev).manual_seed(10)
+    stripes = torch.randint(0, 256, MESH_STRIPES, dtype=torch.uint8,
+                            device=dev, generator=gen)
+    B, k, L = MESH_STRIPES
+    want_par = counted(lambda: bc.encode_batched(stripes), (1, 0, 0),
+                       "encode_batched")
+    for n_dev, mesh in meshes.items():
+        got = counted(lambda: bc.encode_batched_sharded(stripes, mesh),
+                      (n_dev, 0, 0), f"sharded encode on {n_dev}")
+        if not torch.equal(got, want_par):
+            raise AssertionError(f"the sharded encode on {n_dev} shard(s) "
+                                 f"differs from encode_batched")
+    table = device_metrics.shape_table()
+    for n_dev, mesh in meshes.items():
+        out[f"encode{n_dev}_ms"] = cuda_ms(
+            lambda i: counted(lambda: bc.encode_batched_sharded(
+                stripes, mesh), (n_dev, 0, 0), "timed"), MESH_ITERS)
+        sig = bc._sig("encb_mesh", bc.coding_bm.shape,
+                      (pad_batch(B, n_dev), k, L), n_dev)
+        out[f"encode{n_dev}_booked_ms"] = booked_ms(
+            table, f"ec.engine|encode:{sig}")
+    saved = launch_counts()
+    out["k1_ms"] = cuda_ms(lambda i: bc.encode_batched(stripes), MESH_ITERS)
+    set_launch_counts(saved)
+    out["k1_bound_ms"] = B * (k + 3) * L / HBM_BYTES_PER_S * 1e3
+    del stripes, want_par, got
+    log(f"mesh encode: RS(8,3) {list(MESH_STRIPES)} equal to "
+        f"encode_batched on 1 and 2 shards; encode1_ms="
+        f"{out['encode1_ms']:.4f} (booked {out['encode1_booked_ms']:.4f} "
+        f"host) encode2_ms={out['encode2_ms']:.4f} (booked "
+        f"{out['encode2_booked_ms']:.4f}) k1_ms={out['k1_ms']:.4f} "
+        f"k1_bound_ms={out['k1_bound_ms']:.4f} (bytes)")
+
+    # -- the plugins over the two-shard mesh: 64 x 4 MiB objects
+    rng = np.random.default_rng(11)
+    objs = np.frombuffer(rng.bytes(MESH_OBJECTS * EC_OBJECT), np.uint8) \
+        .reshape(MESH_OBJECTS, EC_OBJECT)
+    raws = list(objs)
+    for plugin, profile in MESH_PROFILES:
+        code = factory(plugin, dict(profile), device=dev)
+        n = code.get_chunk_count()
+        route = (0, 0, 1) if code._code.layout.is_packet else (1, 0, 0)
+        plain = counted(lambda: code.encode_batched(range(n), raws),
+                        route, f"{plugin} encode_batched")
+        two = tuple(2 * r for r in route)
+        meshed = counted(lambda: code.encode_batched(range(n), raws,
+                                                     mesh=meshes[2]),
+                         two, f"{plugin} encode_batched over the mesh")
+        for a, b in zip(plain, meshed):
+            if sorted(a) != sorted(b) or \
+                    not all(torch.equal(a[i], b[i]) for i in a):
+                raise AssertionError(f"{plugin} {profile}: the mesh "
+                                     f"encode differs")
+        del plain, meshed
+    log(f"mesh plugins: encode_batched of {MESH_OBJECTS} x 4 MiB over 2 "
+        f"shards equal to the call without a mesh: "
+        + ", ".join(f"{p} {sorted(prof.items())}"
+                    for p, prof in MESH_PROFILES))
+
+    # -- PoolMapper over the two-shard mesh, phase 5's cluster
+    m = m if m is not None else mesh_cluster(cmap, dev)
+    for spec in (POOL_REP, POOL_EC):
+        pid = spec["pool_id"]
+        a = counted(lambda: PoolMapper(m, pid, device=dev).map_all(),
+                    (0, 1, 0), f"pool {pid} map_all")
+        pm2 = PoolMapper(m, pid, mesh=meshes[2])
+        b = counted(pm2.map_all, (0, 2, 0), f"pool {pid} map_all (mesh)")
+        if sorted(a) != sorted(b) or not all(torch.equal(a[k_], b[k_])
+                                             for k_ in a):
+            raise AssertionError(f"PoolMapper(mesh=) differs on pool {pid}")
+    log(f"mesh pipeline: PoolMapper(mesh={meshes[2]}) on phase 5's "
+        f"cluster equal to the call without a mesh for pools 1 and 2")
+
+    # -- CrushTester over the two-shard mesh
+    wrapper, _ = big10k_wrapper()
+    tester = CrushTester(wrapper)
+    reps = [counted(lambda: tester.test_rule(0, 3, 0, MESH_XS - 1,
+                                             device=dev), (0, 1, 0),
+                    "test_rule"),
+            counted(lambda: tester.test_rule(0, 3, 0, MESH_XS - 1,
+                                             mesh=meshes[2]), (0, 2, 0),
+                    "test_rule over the mesh")]
+    a, b = reps
+    if (a.total, a.size_counts, a.bad) != (b.total, b.size_counts, b.bad) \
+            or not np.array_equal(a.device_stored, b.device_stored):
+        raise AssertionError("CrushTester.test_rule(mesh=) differs")
+    log(f"mesh crushtool: test_rule(mesh=) over {MESH_XS} PGs equal to the "
+        f"call without a mesh ({len(a.bad)} bad mappings)")
+
+    # -- the EncodeBatcher: 16 threads x 4 writes of 4 MiB, isa 8+3
+    code = factory("isa", {"k": "8", "m": "3"}, device=dev)
+    want_ids = set(range(code.get_chunk_count()))
+    sizes, singles = [], []
+    real_batched, real_encode = code.encode_batched, code.encode
+
+    def tap_batched(want, rs, mesh=None):
+        sizes.append(len(rs))
+        return real_batched(want, rs, mesh=mesh)
+
+    def tap_encode(want, raw):
+        singles.append(1)
+        return real_encode(want, raw)
+
+    code.encode_batched, code.encode = tap_batched, tap_encode
+    batcher = EncodeBatcher(max_delay_us=2000, mesh=meshes[2])
+    outs = [None] * (MESH_THREADS * MESH_WRITES)
+    errs = []
+
+    def writer(t):
+        try:
+            for j in range(MESH_WRITES):
+                i = t * MESH_WRITES + j
+                outs[i] = batcher.encode(code, want_ids, raws[i])
+        except Exception as e:  # raised below
+            errs.append(e)
+
+    threads = [threading.Thread(target=writer, args=(t,))
+               for t in range(MESH_THREADS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    code.encode_batched, code.encode = real_batched, real_encode
+    if errs:
+        raise errs[0]
+    for raw, got in zip(raws, outs):
+        ref = code.encode(want_ids, raw)
+        if sorted(ref) != sorted(got) or \
+                not all(torch.equal(ref[i], got[i]) for i in ref):
+            raise AssertionError("an EncodeBatcher write differs from "
+                                 "encode")
+    out["batcher"] = {"dispatches": len(sizes) + len(singles),
+                      "batched": sizes, "single": len(singles)}
+    log(f"mesh batcher: {MESH_THREADS} threads x {MESH_WRITES} writes of "
+        f"4 MiB, isa 8+3, every chunk equal to encode: "
+        + json.dumps(out["batcher"]))
+    del raws, objs, outs
+
+    # -- contracts and the steady-state gate on the card (not counted)
+    saved = launch_counts()
+    violations = contracts.verify_all(dev)
+    if violations:
+        raise AssertionError("contracts on the card:\n"
+                             + "\n".join(map(str, violations)))
+    base = len(contracts.recompile_violations())
+    plane = planes[1]
+    with contracts.steady_state("chip_smoke mesh steady state"):
+        for n_dev, plane in planes.items():
+            plane.map_batch(0, xs, 3, w, gather_stats=True)
+        stripes = torch.zeros(MESH_STRIPES, dtype=torch.uint8, device=dev)
+        for mesh in meshes.values():
+            bc.encode_batched_sharded(stripes, mesh)
+    bad = contracts.recompile_violations()[base:]
+    if bad:
+        raise AssertionError(f"steady state on the card: {bad}")
+    set_launch_counts(saved)
+    log(f"mesh contracts: verify_all('{dev}') holds "
+        f"({len(contracts.contracts())} contracts); the steady-state gate "
+        f"saw no rebuild")
+
+    # -- the device plane's report
+    device_metrics.sample_memory()
+    dump = collection().dump()
+    log("mesh per_device: " + json.dumps(device_metrics.per_device()))
+    log("mesh device report: " + json.dumps(mesh_device_report(meshes[2])))
+    log("mesh counters: " + json.dumps(
+        {k: dump[k] for k in ("ec.engine", "crush.mapper", "device",
+                              "device.caches")}))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("mesh: " + json.dumps(out))
+    return out
+
 def main():
     import tempfile
 
@@ -2634,6 +2989,13 @@ def main():
         lay["k1_launches"], lay["k3_launches"] = lay_k1, lay_k3
         spec, spec_k2 = phase_spec(dev)
         k2["launches"] += spec_k2
+
+        # the mesh data plane: every count at 0 before it
+        set_launch_counts((0, 0, 0))
+        mesh = phase_mesh(dev, card, big_map)
+        mesh["launches"] = dict(zip(("k1", "k2", "k3"), launch_counts()))
+        for k, n in zip((k1, k2, k3), launch_counts()):
+            k["launches"] += n
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
     for k in (k1, k2, k3):
@@ -2662,6 +3024,8 @@ def main():
     log("layouts_phase: " + json.dumps(
         {key: lay[key] for key in ("card", "phase_s", "k1_launches",
                                    "k3_launches")}))
+    log("mesh_phase: " + json.dumps(
+        {key: mesh[key] for key in ("card", "phase_s", "launches")}))
     log(f"gpu: {card}")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -197,8 +197,12 @@ def test_encode_batched_equals_per_object_encode(plugin, profile):
     mixed = [_obj(1000, 1), _obj(2500, 2)]
     for raw, got in zip(mixed, pc.encode_batched({0, n - 1}, mixed)):
         _same_chunks(jc.encode({0, n - 1}, raw), got)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        pc.encode_batched(range(n), raws, mesh=object())
+    # over a mesh (a 4-way split on the CPU): the same chunks
+    from ceph_tpu_torch.parallel.placement import make_mesh
+
+    meshed = pc.encode_batched(range(n), raws, mesh=make_mesh(["cpu"] * 4))
+    for raw, got in zip(raws, meshed):
+        _same_chunks(jc.encode(range(n), raw), got)
 
 
 @pytest.mark.parametrize("plugin,profile", [p for p in PROFILES

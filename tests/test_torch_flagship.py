@@ -18,6 +18,7 @@ import jax.numpy as jnp
 
 from __graft_entry__ import entry
 
+from ceph_tpu_torch.analysis import contracts
 from ceph_tpu_torch.convert import bitcode_from_numpy, map_arrays_from_numpy
 from ceph_tpu_torch.crush.builder import sample_cluster_map
 from ceph_tpu_torch.crush.map_arrays import as_i32
@@ -33,6 +34,7 @@ from ceph_tpu_torch.mgr.balancer_module import evaluate, run_offline
 from ceph_tpu_torch.osdmap.balancer import build_pgs_by_osd, calc_pg_upmaps
 from ceph_tpu_torch.osdmap.osdmap import OSDMap, PgPool
 from ceph_tpu_torch.osdmap.pipeline import PoolMapper
+from ceph_tpu_torch.parallel.placement import PlacementPlane
 from ceph_tpu_torch.tools import crushtool
 from ceph_tpu_torch.tools.tester import CrushTester
 
@@ -177,6 +179,9 @@ def test_entry_points_default_to_the_card(tmp_path):
         lambda: SpeculativeMapper(cmap),
         lambda: build_spec_rule_fn(cmap, 0, 3),
         lambda: spec_cross_check(16),
+        lambda: contracts.verify_all(),
+        lambda: contracts.verify("ec.gf2_matmul_w8"),
+        lambda: PlacementPlane(cmap),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -202,8 +202,16 @@ def test_compare_equal(engine, name, ruleno, numrep):
 def test_engines_and_devices():
     _, pw, _ = golden("map_flat12")
     t = ptester.CrushTester(pw)
-    with pytest.raises(NotImplementedError, match="mesh plane"):
-        t.test_rule(0, 3, mesh=object(), device="cpu")
+    # over a mesh (a 3-way split on the CPU): the same report, the
+    # plane's tally as its per-device counts
+    from ceph_tpu_torch.parallel.placement import make_mesh
+
+    a = t.test_rule(0, 3, 0, 99, mesh=make_mesh(["cpu"] * 3),
+                    collect_mappings=True)
+    b = t.test_rule(0, 3, 0, 99, device="cpu", collect_mappings=True)
+    assert (a.size_counts, a.mappings, a.bad) == \
+        (b.size_counts, b.mappings, b.bad)
+    assert np.array_equal(a.device_stored, b.device_stored)
     for kw in ({"scalar": True}, {"native": True}):
         xs, rows, lens = t.sweep(0, 3, 0, 15, **kw)
         assert rows.device.type == "cpu" and rows.shape == (16, 3)
