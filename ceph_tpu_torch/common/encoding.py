@@ -64,3 +64,41 @@ def decode_any(blob: str | bytes, supported: int = 1,
     if is_envelope(parsed):
         return decode(blob, supported=supported, struct=struct)
     return 0, parsed
+
+
+class Versioned:
+    """Mixin: a class with ``to_dict``/``from_dict`` gains its versioned
+    wire form.
+
+    Subclasses set STRUCT_V/COMPAT_V and may override
+    ``upgrade(writer_v, data)`` to carry an old payload forward.  A
+    payload that passes the envelope but breaks ``from_dict`` (a
+    tampered field, a wrong type) is raised again as MalformedInput
+    naming the struct and both versions.
+    """
+
+    STRUCT_V = 1
+    COMPAT_V = 1
+
+    def encode_versioned(self) -> str:
+        return encode(self.to_dict(), self.STRUCT_V, self.COMPAT_V)
+
+    @classmethod
+    def decode_versioned(cls, blob: str | bytes):
+        v, data = decode(blob, supported=cls.STRUCT_V,
+                         struct=cls.__name__)
+        try:
+            data = cls.upgrade(v, data)
+            return cls.from_dict(data)
+        except MalformedInput:
+            raise
+        except (KeyError, TypeError, ValueError, IndexError,
+                AttributeError) as e:
+            raise MalformedInput(
+                f"{cls.__name__} (writer v{v}, reader v"
+                f"{cls.STRUCT_V}): bad payload: {e!r}")
+
+    @classmethod
+    def upgrade(cls, writer_v: int, data: Dict[str, Any]
+                ) -> Dict[str, Any]:
+        return data

@@ -26,6 +26,7 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 from ..common import encoding
+from ..common.encoding import Versioned
 from ..crush.constants import CRUSH_ITEM_NONE
 from ..crush.hash import hash32_2_int
 from ..crush.map import CrushMap
@@ -56,7 +57,7 @@ def _calc_mask(n: int) -> int:
 
 
 @dataclass
-class PgPool:
+class PgPool(Versioned):
     """pg_pool_t essentials (src/osd/osd_types.h:1300-1850)."""
 
     pool_type: int = POOL_TYPE_REPLICATED

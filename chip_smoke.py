@@ -135,6 +135,33 @@ Phases (any failure raises and the script exits non-zero):
    plane's report (``per_device``, ``mesh_device_report``, the counter
    dump).
 
+11. Map epochs and the stores, with every launch count at 0, on phase
+   5's cluster: a primary map makes 24 epochs (OSDs down, then out, a
+   host down, out and back, reweights, primary affinity, pg_upmap_items,
+   pg_upmap, pg_temp and primary_temp set and removed, the EC pool's
+   pgp_num raised, a host's CRUSH weight halved, 8 OSDs added to the
+   CRUSH map, a third pool created and deleted; every ``Incremental``
+   field filled), each a ``diff_maps`` delta in its versioned envelope,
+   every 8th epoch also the full map's bincode, committed one
+   ``KVTransaction`` an epoch to a ``KeyValueDB`` over a ``WALStore``
+   (a checkpoint after 12).  The store is mounted again without its
+   final checkpoint and replayed: every blob equal to the one written;
+   ``objectstore_tool --op list`` on a copy lists it.  A follower starts
+   from the store's first full map and, for each later epoch, decodes
+   and applies the delta, keeps, refreshes or rebuilds its
+   ``PoolMapper`` of each pool (a kept or refreshed one lowers nothing:
+   the same ``prog``, ``arrays`` and ``pool``, no ``encode_map`` or
+   ``compile_rule``) and runs ``map_all`` on the card.  After every
+   epoch its rows equal those of a fresh ``PoolMapper`` of the primary's
+   map through its bytes, on every PG of every pool, and the scalar
+   ``pg_to_up_acting_osds`` (CRUSH stage on the native engine; 64 PGs a
+   pool through mapper_ref itself) on the epoch's exception PGs, up to
+   4,096 on changed OSDs and 4,096 random ones; its map encodes to the
+   primary's bytes.  Then a second follower, with the oracle's workers
+   idle, times each epoch on the host clock (decode, apply, the mappers,
+   ``map_all`` of every pool), and ``map_all`` and K2 per pool by CUDA
+   events.
+
 The scalar oracles run in worker processes (spawned, stopped at the
 end) beside the card's work.
 Tolerance is zero everywhere: every output is an integer.  Kernel times
@@ -147,13 +174,14 @@ figures; K1's 1-bit products are counted at the int8 rate, which is
 lower).  It prints
 the card's name and power limit, one line per kernel, one ``kernels``
 JSON line (K1's launches: phases 4, 8, 9 and 10; K2's: phase 4's, one a
-``map_all`` call in phases 5 and 6, one a sweep in phase 7, one a rule
-in phase 8, phase 9's cross-check and one a shard in phase 10; K3's:
-phases 9 and 10), K2's variants, the
+``map_all`` call in phases 5, 6 and 11, one a sweep in phase 7, one a
+rule in phase 8, phase 9's cross-check and one a shard in phase 10;
+K3's: phases 9 and 10), K2's variants, the
 flagship rates, the pipeline's rates, the balancer's records and time
 split, crushtool's record, one ``ec_plugins`` line per profile and
 workload, phase 9's ``layouts``, ``k3``, ``words`` and ``spec`` lines,
-phase 10's ``mesh`` lines, and last the contract line
+phase 10's ``mesh`` lines, phase 11's ``epoch`` lines and its
+``epochs_phase`` record, and last the contract line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the rest of the repository beside it, it exits non-zero and prints no
 result.
@@ -2901,6 +2929,640 @@ def phase_mesh(dev, card, m=None):
     log("mesh: " + json.dumps(out))
     return out
 
+# -- phase 11 ---------------------------------------------------------
+
+EPOCH_POOL3 = dict(pool_id=3, size=3, rule=0, pg_num=8192, pgp_num=8192)
+EPOCH_FULL_EVERY = 8   # a full map goes into the store every 8th epoch
+EPOCH_CHECKPOINT = 12  # the store checkpoints after this many epochs
+EPOCH_RANDOM = 4096    # random PGs a pool and epoch held to the scalar pipeline
+EPOCH_CHANGED = 4096   # at most this many PGs a pool on the epoch's changed OSDs
+EPOCH_REF = 64         # of the checked PGs, a pool and epoch, through mapper_ref
+EPOCH_ITERS = 8        # timed map_all calls a pool
+EPOCH_CHUNK = 1024     # PGs a scalar oracle task
+INC_FIELDS = ("new_max_osd", "new_pools", "old_pools", "new_state",
+              "new_weight", "new_primary_affinity", "new_pg_upmap",
+              "old_pg_upmap", "new_pg_upmap_items", "old_pg_upmap_items",
+              "new_pg_temp", "new_primary_temp", "new_crush")
+TABLE_FIELDS = ("new_pg_upmap", "old_pg_upmap", "new_pg_upmap_items",
+                "old_pg_upmap_items", "new_pg_temp", "new_primary_temp")
+
+
+def native_rows(m, pool_id):
+    """The raw CRUSH rows of every PG of a pool on the native engine
+    (host): (i32 [pg_num, size], i32 [pg_num])."""
+    from ceph_tpu_torch.crush.native import NativeMapper
+
+    pool = m.pools[pool_id]
+    pps = [pool.raw_pg_to_pps(pool_id, ps) for ps in range(pool.pg_num)]
+    return NativeMapper(m.crush, m.crush.choose_args.get(pool_id)).map_batch(
+        pool.crush_rule, pps, pool.size, m.osd_weight)
+
+
+def epoch_changes(pool3=EPOCH_POOL3):
+    """Phase 11's epochs, in order: (kind, change) pairs, where
+    ``change(m, rng, st)`` edits the primary's map ``m`` in place (``st``
+    carries what earlier changes did).  Each is a change a cluster
+    sees; together they fill every field of an ``Incremental``."""
+    import dataclasses
+
+    from ceph_tpu_torch.crush.builder import bucket_add_item
+    from ceph_tpu_torch.crush.constants import CRUSH_BUCKET_UNIFORM
+    from ceph_tpu_torch.crush.wrapper import CrushWrapper
+    from ceph_tpu_torch.osdmap.osdmap import (DEFAULT_PRIMARY_AFFINITY,
+                                              OSD_UP, PgPool,
+                                              POOL_TYPE_REPLICATED)
+
+    def pick(rng, xs, k):
+        xs = list(xs)
+        return [int(x) for x in rng.choice(xs, min(k, len(xs)),
+                                           replace=False)]
+
+    def some(rng, xs, frac):
+        xs = list(xs)
+        return pick(rng, xs, max(1, int(len(xs) * frac)))
+
+    def live(m):  # existing, up and in
+        return [o for o in range(m.max_osd)
+                if m.exists(o) and m.is_up(o) and m.osd_weight[o] > 0]
+
+    def pgs(m, rng, frac):  # frac of every pool's PGs
+        return [(pid, ps) for pid in sorted(m.pools)
+                for ps in some(rng, range(m.pools[pid].pg_num), frac)]
+
+    def leaf_bucket(m, rng):  # a host: a bucket of devices
+        hosts = sorted(i for i, b in m.crush.buckets.items()
+                       if b.items and min(b.items) >= 0)
+        return m.crush.buckets[hosts[int(rng.integers(len(hosts)))]]
+
+    def down(m, rng, st):
+        st["down"] = some(rng, live(m), 0.005)
+        for o in st["down"]:
+            m.osd_state[o] &= ~OSD_UP
+
+    def out(m, rng, st):
+        for o in st["down"]:
+            m.osd_weight[o] = 0
+
+    def reweight(m, rng, st):
+        for o in some(rng, live(m), 0.005):
+            m.osd_weight[o] = int(rng.integers(0x4000, 0x10000))
+
+    def affinity(m, rng, st):
+        st["aff"] = some(rng, range(m.max_osd), 0.05)
+        for o in st["aff"]:
+            m.set_primary_affinity(o, int(rng.integers(0, 0x10000)))
+
+    def upmap_items(m, rng, st, frac=0.01):
+        rows = {pid: native_rows(m, pid) for pid in sorted(m.pools)}
+        osds = live(m)
+        for pid, ps in pgs(m, rng, frac):
+            res, lens = rows[pid]
+            frm = int(res[ps, rng.integers(max(int(lens[ps]), 1))])
+            m.pg_upmap_items[(pid, ps)] = [
+                (frm, osds[int(rng.integers(len(osds)))])]
+            st.setdefault("items", []).append((pid, ps))
+
+    def upmap_items_rm(m, rng, st):
+        for pg in st["items"][::2]:
+            m.pg_upmap_items.pop(pg, None)
+
+    def upmap(m, rng, st):
+        osds = live(m)
+        st["upmap"] = pgs(m, rng, 0.001)
+        for pid, ps in st["upmap"]:
+            m.pg_upmap[(pid, ps)] = pick(rng, osds, m.pools[pid].size)
+
+    def upmap_rm(m, rng, st):
+        for pg in st["upmap"]:
+            m.pg_upmap.pop(pg, None)
+
+    def pg_temp(m, rng, st):
+        osds = live(m)
+        st["temp"] = pgs(m, rng, 0.01)
+        for pid, ps in st["temp"]:
+            m.pg_temp[(pid, ps)] = pick(rng, osds, m.pools[pid].size)
+
+    def pg_temp_clear(m, rng, st):
+        for pg in st["temp"]:
+            m.pg_temp.pop(pg, None)
+
+    def primary_temp(m, rng, st):
+        osds = live(m)
+        st["ptemp"] = pgs(m, rng, 0.001)
+        for pg in st["ptemp"]:
+            m.primary_temp[pg] = osds[int(rng.integers(len(osds)))]
+
+    def primary_temp_rm(m, rng, st):
+        for pg in st["ptemp"]:
+            m.primary_temp.pop(pg, None)
+
+    def pgp_num(m, rng, st):
+        for pid, pool in list(m.pools.items()):
+            if pool.pgp_num < pool.pg_num:
+                m.pools[pid] = dataclasses.replace(
+                    pool, pgp_num=min(pool.pg_num,
+                                      pool.pgp_num + pool.pg_num // 8))
+
+    def crush_weight(m, rng, st):
+        host, w = leaf_bucket(m, rng), CrushWrapper(m.crush)
+        for pos, o in enumerate(list(host.items)):
+            w.adjust_item_weight(o, max(1, host.item_weight_at(pos) // 2))
+
+    def host_down(m, rng, st):
+        st["host"] = [o for o in leaf_bucket(m, rng).items if m.exists(o)]
+        for o in st["host"]:
+            m.osd_state[o] &= ~OSD_UP
+
+    def host_out(m, rng, st):
+        for o in st["host"]:
+            m.osd_weight[o] = 0
+
+    def host_back(m, rng, st):
+        for o in st["host"]:
+            m.osd_state[o] |= OSD_UP
+            m.osd_weight[o] = 0x10000
+
+    def new_osds(m, rng, st):
+        host, w, n0 = leaf_bucket(m, rng), CrushWrapper(m.crush), m.max_osd
+        for o in range(n0, n0 + 8):
+            if host.alg == CRUSH_BUCKET_UNIFORM:  # one weight for all
+                bucket_add_item(host, o, host.item_weight)
+            else:  # weight 0, then up the tree as an operator would
+                bucket_add_item(host, o, 0)
+                w.adjust_item_weight(o, 0x10000)
+        m.crush.max_devices = max(m.crush.max_devices, n0 + 8)
+        for o in range(n0, n0 + 8):
+            m.add_osd(o)
+
+    def pool_create(m, rng, st):
+        m.pools[pool3["pool_id"]] = PgPool(
+            pool_type=POOL_TYPE_REPLICATED, size=pool3["size"],
+            pg_num=pool3["pg_num"], pgp_num=pool3["pgp_num"],
+            crush_rule=pool3["rule"])
+
+    def pool_delete(m, rng, st):
+        del m.pools[pool3["pool_id"]]
+
+    def up(m, rng, st):
+        for o in st["down"]:
+            m.osd_state[o] |= OSD_UP
+
+    def back_in(m, rng, st):
+        for o in st["down"]:
+            m.osd_weight[o] = 0x10000
+
+    def affinity_reset(m, rng, st):
+        for o in st["aff"][::2]:
+            m.set_primary_affinity(o, DEFAULT_PRIMARY_AFFINITY)
+
+    def mixed(m, rng, st):  # a flap and new upmap items in one epoch
+        for o in some(rng, live(m), 0.002):
+            m.osd_state[o] &= ~OSD_UP
+        upmap_items(m, rng, st, frac=0.005)
+
+    return [("down", down), ("out", out), ("reweight", reweight),
+            ("affinity", affinity), ("upmap_items", upmap_items),
+            ("upmap", upmap), ("pg_temp", pg_temp),
+            ("primary_temp", primary_temp),
+            ("upmap_items_rm", upmap_items_rm),
+            ("pg_temp_clear", pg_temp_clear),
+            ("primary_temp_rm", primary_temp_rm), ("pgp_num", pgp_num),
+            ("crush_weight", crush_weight), ("host_down", host_down),
+            ("host_out", host_out), ("new_osds", new_osds),
+            ("pool_create", pool_create), ("upmap_rm", upmap_rm),
+            ("pool_delete", pool_delete), ("host_back", host_back),
+            ("up", up), ("in", back_in), ("affinity_reset", affinity_reset),
+            ("mixed", mixed)]
+
+
+def make_epochs(m, seed=11, pool3=EPOCH_POOL3):
+    """Drive the primary's map ``m`` through ``epoch_changes``: yields
+    (epoch, kind, Incremental, map) for each, the delta from
+    ``diff_maps`` of the map before and after (its epoch one more), and
+    the map the epoch leaves (``m`` itself; it keeps changing)."""
+    from ceph_tpu_torch.osdmap.incremental import diff_maps
+
+    rng = np.random.default_rng(seed)
+    st = {}
+    for kind, change in epoch_changes(pool3):
+        old = copy.deepcopy(m)
+        change(m, rng, st)
+        m.epoch += 1
+        yield m.epoch, kind, diff_maps(old, m), m
+
+
+def mapper_action(inc, pool_id):
+    """What the follower does with its cached ``PoolMapper`` of a pool
+    after applying ``inc``: "rebuild" when the delta replaces the CRUSH
+    map, the OSD count or the pool (``apply_incremental`` swaps those
+    objects, and a mapper keeps the ones it was built from), "refresh"
+    when it edits the pool's exception tables, else "reuse" (states,
+    weights and affinities are read at each call)."""
+    if inc.new_crush is not None or inc.new_max_osd is not None or \
+            pool_id in inc.new_pools or pool_id in inc.old_pools:
+        return "rebuild"
+    for f in TABLE_FIELDS:
+        if any(pg[0] == pool_id for pg in getattr(inc, f)):
+            return "refresh"
+    return "reuse"
+
+
+def _oracle_epoch(blob, pool_id, raw, pss):
+    """A worker's share of phase 11's scalar oracle: pg_to_up_acting_osds
+    of the pickled OSDMap ``blob`` over ``pss``, its CRUSH stage answered
+    from ``raw`` ({pps: row} from the native engine), or through
+    mapper_ref itself when ``raw`` is None."""
+    from ceph_tpu_torch.osdmap import osdmap
+
+    m = pickle.loads(blob)
+    if raw is None:
+        return [m.pg_to_up_acting_osds(pool_id, int(ps)) for ps in pss]
+
+    def lookup(cmap, ruleno, x, numrep, weight, choose_args=None):
+        return list(raw[x])
+
+    real, osdmap.crush_do_rule = osdmap.crush_do_rule, lookup
+    try:
+        return [m.pg_to_up_acting_osds(pool_id, int(ps)) for ps in pss]
+    finally:
+        osdmap.crush_do_rule = real
+
+
+def epoch_check_pgs(inc, pool_id, pg_num, prev, rng):
+    """The PGs of a pool that phase 11 holds to the scalar pipeline after
+    ``inc``: its exception entries, up to EPOCH_CHANGED PGs whose
+    previous rows (``prev``: host up/acting, or None) hold an OSD whose
+    state, weight or affinity changed, and EPOCH_RANDOM more."""
+    pss = {pg[1] for f in TABLE_FIELDS for pg in getattr(inc, f)
+           if pg[0] == pool_id and pg[1] < pg_num}
+    changed = sorted(set(inc.new_state) | set(inc.new_weight)
+                     | set(inc.new_primary_affinity))
+    if changed and prev is not None:
+        hit = np.isin(prev["up"], changed).any(1) | \
+            np.isin(prev["acting"], changed).any(1)
+        on = np.flatnonzero(hit)
+        if len(on) > EPOCH_CHANGED:
+            on = rng.choice(on, EPOCH_CHANGED, replace=False)
+        pss |= {int(p) for p in on}
+    pss |= {int(p) for p in rng.choice(pg_num, min(EPOCH_RANDOM, pg_num),
+                                       replace=False)}
+    return sorted(pss)
+
+
+def follow_epoch(fm, mappers, inc, dev):
+    """The follower's mappers after ``inc`` was applied to its map
+    ``fm``: each pool's ``PoolMapper`` in ``mappers`` kept, refreshed or
+    rebuilt by ``mapper_action`` (built for a new pool, dropped for a
+    deleted one), a kept or refreshed one asserted to hold the same
+    ``prog``, ``arrays`` and ``pool``.  Returns {pool: action}."""
+    from ceph_tpu_torch.osdmap.pipeline import PoolMapper
+
+    actions = {}
+    for pid in sorted(set(mappers) | set(fm.pools)):
+        if pid not in fm.pools:
+            del mappers[pid]
+            actions[pid] = "drop"
+            continue
+        act = actions[pid] = "rebuild" if pid not in mappers \
+            else mapper_action(inc, pid)
+        if act == "rebuild":
+            mappers[pid] = PoolMapper(fm, pid, device=dev)
+            continue
+        pm = mappers[pid]
+        kept = (pm.prog, pm.arrays, pm.pool)
+        if act == "refresh":
+            pm.refresh_tables()
+        if any(a is not b for a, b in zip((pm.prog, pm.arrays, pm.pool),
+                                          kept)):
+            raise AssertionError(f"epoch {inc.epoch}: pool {pid}'s mapper "
+                                 f"lowered its map again on {act}")
+    return actions
+
+
+def _strongest(actions):
+    """An epoch's class: the costliest thing its mappers did."""
+    for a in ("rebuild", "refresh"):
+        if a in actions.values():
+            return a
+    return "reuse"
+
+
+def phase_epochs(dev, pool, m):
+    """Map epochs on the card.  A primary map (phase 5's cluster ``m``)
+    makes 24 epochs (``epoch_changes``), each a ``diff_maps`` delta
+    encoded with ``encode_versioned`` and, every 8th epoch, the full map
+    (``osdmap_to_bytes``), committed one ``KVTransaction`` an epoch to a
+    ``KeyValueDB`` over a ``WALStore`` (a checkpoint after 12 epochs; no
+    final one).  The store is mounted again and replayed: every blob
+    equal to the one written; ``objectstore_tool --op list`` lists a copy
+    of it.  A follower starts from epoch 1's full map out of the store
+    and, for each later epoch, decodes the delta, applies it, keeps,
+    refreshes or rebuilds its ``PoolMapper`` of each pool
+    (``mapper_action``) and runs ``map_all`` on the card.  After every
+    epoch, for every pool: the follower's rows equal those of a fresh
+    ``PoolMapper`` of the primary's map through its bytes, on every PG,
+    and the scalar ``pg_to_up_acting_osds`` of that map on the PGs of
+    ``epoch_check_pgs`` (its CRUSH stage from the native engine, since
+    mapper_ref takes 5-17 ms a PG; EPOCH_REF of them through mapper_ref
+    itself); the follower's map encodes to the primary's bytes, and
+    equals the store's full map where there is one; a kept or refreshed
+    mapper keeps its lowered map (the same ``prog``, ``arrays`` and
+    ``pool``; no ``encode_map`` or ``compile_rule`` call).  Returns
+    (record, K2's launches: one a ``map_all``, asserted)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from ceph_tpu_torch.crush import mapper
+    from ceph_tpu_torch.crush.native import NativeMapper
+    from ceph_tpu_torch.os.kv import KeyValueDB, KVTransaction
+    from ceph_tpu_torch.os.wal_store import WALStore
+    from ceph_tpu_torch.osdmap import pipeline
+    from ceph_tpu_torch.osdmap.bincode_maps import (osdmap_from_bytes,
+                                                    osdmap_to_bytes)
+    from ceph_tpu_torch.osdmap.incremental import (Incremental,
+                                                   apply_incremental)
+
+    t_phase = time.perf_counter()
+
+    def ms(t):
+        return (time.perf_counter() - t) * 1e3
+
+    m = copy.deepcopy(m)
+    e0 = m.epoch
+    calls = 0  # map_all calls
+    lowered = {"encode_map": 0, "compile_rule": 0}
+
+    def counting(name, fn):
+        def wrapped(*a, **k):
+            lowered[name] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    real = pipeline.encode_map, pipeline.compile_rule
+    pipeline.encode_map = counting("encode_map", real[0])
+    pipeline.compile_rule = counting("compile_rule", real[1])
+    tool = None
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        # 1-2: the primary's epochs, committed to the store
+        path = os.path.join(tmp.name, "mon.wal")
+        store = WALStore(path)
+        store.mkfs()
+        store.mount()
+        kv = KeyValueDB(store)
+        bare = copy.deepcopy(m)
+        for table in (bare.pg_upmap, bare.pg_upmap_items, bare.pg_temp,
+                      bare.primary_temp):
+            table.clear()
+        bare_bytes = len(osdmap_to_bytes(bare))  # no exception tables
+        primary_bytes = {e0: osdmap_to_bytes(m)}
+        written = {f"full_{e0:08d}": primary_bytes[e0]}
+        t = time.perf_counter()
+        kv.submit_transaction(KVTransaction().set(
+            "osdmap", f"full_{e0:08d}", primary_bytes[e0]))
+        gen = {e0: {"kind": "initial", "commit_ms": ms(t),
+                    "full_bytes": len(primary_bytes[e0])}}
+        filled = set()
+        for e, kind, inc, pm_ in make_epochs(m):
+            row = gen[e] = {"kind": kind}
+            blob = inc.encode_versioned().encode()
+            primary_bytes[e] = osdmap_to_bytes(pm_)
+            txn = KVTransaction().set("osdmap", f"inc_{e:08d}", blob)
+            written[f"inc_{e:08d}"] = blob
+            if (e - e0) % EPOCH_FULL_EVERY == 0:
+                txn.set("osdmap", f"full_{e:08d}", primary_bytes[e])
+                written[f"full_{e:08d}"] = primary_bytes[e]
+                row["full_bytes"] = len(primary_bytes[e])
+            t = time.perf_counter()
+            kv.submit_transaction(txn)
+            row["commit_ms"] = ms(t)
+            row["inc_bytes"] = len(blob)
+            row["fields"] = [f for f in INC_FIELDS
+                             if getattr(inc, f) not in (None, {}, [])]
+            filled.update(row["fields"])
+            if e - e0 == EPOCH_CHECKPOINT:
+                t = time.perf_counter()
+                store.checkpoint()
+                row["checkpoint_ms"] = ms(t)
+        if filled != set(INC_FIELDS):
+            raise AssertionError(f"the epochs left Incremental fields "
+                                 f"empty: {set(INC_FIELDS) - filled}")
+        last = max(primary_bytes)
+        del store, kv  # dropped without umount: no final checkpoint
+
+        t = time.perf_counter()
+        store = WALStore(path)
+        store.mount()
+        mount_ms = ms(t)
+        kv = KeyValueDB(store)
+        back = kv.get_by_prefix("osdmap")
+        same = sum(back.get(k) == v for k, v in written.items())
+        if back != written:
+            raise AssertionError(f"the store gave back {len(back)} blobs, "
+                                 f"{same} of the {len(written)} written")
+        copy_path = os.path.join(tmp.name, "copy.wal")
+        shutil.copytree(path, copy_path)
+        tool = subprocess.Popen(
+            [sys.executable, "-m", "ceph_tpu_torch.tools.objectstore_tool",
+             "--data-path", copy_path, "--op", "list"],
+            cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        log(f"epochs store: {len(written)} blobs of {last - e0} epochs "
+            f"({sum(map(len, written.values()))} bytes), mount and replay "
+            f"{mount_ms:.3f} ms, every blob equal")
+
+        # 3-4: the follower, checked after every epoch
+        rng = np.random.default_rng(14)
+        fm = osdmap_from_bytes(kv.get("osdmap", f"full_{e0:08d}"))
+        mappers = {pid: pipeline.PoolMapper(fm, pid, device=dev)
+                   for pid in sorted(fm.pools)}
+        prev = {pid: {k: v.cpu().numpy() for k, v in pm.map_all().items()}
+                for pid, pm in mappers.items()}
+        calls += len(mappers)
+        checks, n_actions = [], {}
+        for e in range(e0 + 1, last + 1):
+            kind = gen[e]["kind"]
+            inc = Incremental.decode_versioned(
+                kv.get("osdmap", f"inc_{e:08d}"))
+            apply_incremental(fm, inc)
+            before = dict(lowered)
+            actions = follow_epoch(fm, mappers, inc, dev)
+            if "rebuild" not in actions.values() and lowered != before:
+                raise AssertionError(f"epoch {e} ({kind}): {actions} "
+                                     f"lowered the map: {lowered}, was "
+                                     f"{before}")
+            for a in actions.values():
+                n_actions[a] = n_actions.get(a, 0) + 1
+            outs = {pid: pm.map_all() for pid, pm in mappers.items()}
+            calls += len(outs)
+
+            # (b) the primary's map through its bytes, and a fresh mapper
+            if osdmap_to_bytes(fm) != primary_bytes[e]:
+                raise AssertionError(f"epoch {e}: the follower's map does "
+                                     f"not encode to the primary's")
+            pmap = osdmap_from_bytes(primary_bytes[e])
+            full = kv.get("osdmap", f"full_{e:08d}")
+            if full is not None and \
+                    osdmap_from_bytes(full).to_dict() != fm.to_dict():
+                raise AssertionError(f"epoch {e}: the follower's map "
+                                     f"differs from the store's full map")
+            for pid in sorted(outs):
+                fresh = pipeline.PoolMapper(pmap, pid, device=dev).map_all()
+                calls += 1
+                for k, v in fresh.items():
+                    if not torch.equal(v, outs[pid][k]):
+                        raise AssertionError(
+                            f"epoch {e} ({kind}) pool {pid}: the follower's "
+                            f"{k} differs from a fresh PoolMapper's")
+
+            # (c) the scalar pipeline of the primary's map, in the workers
+            blob = pickle.dumps(pmap)
+            checked = {}
+            for pid in sorted(outs):
+                p = pmap.pools[pid]
+                host = {k: v.cpu().numpy() for k, v in outs[pid].items()}
+                pss = epoch_check_pgs(inc, pid, p.pg_num, prev.get(pid), rng)
+                prev[pid] = host
+                pps = [p.raw_pg_to_pps(pid, ps) for ps in pss]
+                res, lens = NativeMapper(
+                    pmap.crush, pmap.crush.choose_args.get(pid)).map_batch(
+                    p.crush_rule, pps, p.size, pmap.osd_weight)
+                got = {ps: (host["up"][ps, :host["up_len"][ps]].tolist(),
+                            int(host["up_primary"][ps]),
+                            host["acting"][ps, :host["acting_len"][ps]]
+                            .tolist(), int(host["acting_primary"][ps]))
+                       for ps in pss}
+                for i in range(0, len(pss), EPOCH_CHUNK):
+                    raw = {x: res[j, :lens[j]].tolist() for j, x in
+                           enumerate(pps[i:i + EPOCH_CHUNK], start=i)}
+                    part = pss[i:i + EPOCH_CHUNK]
+                    checks.append((e, pid, part, got, False, pool.submit(
+                        _oracle_epoch, blob, pid, raw, part)))
+                ref = sorted(int(x) for x in rng.choice(
+                    pss, min(EPOCH_REF, len(pss)), replace=False))
+                checks.append((e, pid, ref, got, True, pool.submit(
+                    _oracle_epoch, blob, pid, None, ref)))
+                checked[pid] = len(pss)
+            log(f"epoch {e} {kind}: mappers {json.dumps(actions)}, "
+                f"every PG equal to a fresh PoolMapper, "
+                f"{json.dumps(checked)} PGs to the scalar pipeline")
+        n_rows = n_ref = 0
+        for e, pid, pss, got, by_ref, fut in checks:
+            for ps, want in zip(pss, fut.result()):
+                if got[ps] != tuple(want):
+                    raise AssertionError(
+                        f"epoch {e} pool {pid} pg {ps}: the follower's "
+                        f"{got[ps]} != pg_to_up_acting_osds {want}")
+            n_rows += 0 if by_ref else len(pss)
+            n_ref += len(pss) if by_ref else 0
+        log(f"epochs check: {n_rows} (epoch, pool, PG) rows equal to "
+            f"pg_to_up_acting_osds (CRUSH stage on the native engine), "
+            f"{n_ref} of them again through mapper_ref")
+
+        # 5: timing, a second follower with the workers idle
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fm = osdmap_from_bytes(kv.get("osdmap", f"full_{e0:08d}"))
+        first_decode_ms = ms(t)
+        t = time.perf_counter()
+        mappers = {pid: pipeline.PoolMapper(fm, pid, device=dev)
+                   for pid in sorted(fm.pools)}
+        for pm in mappers.values():
+            pm.map_all()
+        calls += len(mappers)
+        torch.cuda.synchronize()
+        first_map_ms = ms(t)
+        rows = []
+        for e in range(e0 + 1, last + 1):
+            t_e = time.perf_counter()
+            inc = Incremental.decode_versioned(
+                kv.get("osdmap", f"inc_{e:08d}"))
+            decode_ms = ms(t_e)
+            t = time.perf_counter()
+            apply_incremental(fm, inc)
+            apply_ms = ms(t)
+            t = time.perf_counter()
+            actions = follow_epoch(fm, mappers, inc, dev)
+            mapper_ms = ms(t)
+            t = time.perf_counter()
+            for pm in mappers.values():
+                pm.map_all()
+            calls += len(mappers)
+            torch.cuda.synchronize()
+            map_ms = ms(t)
+            row = {"epoch": e, "kind": gen[e]["kind"], "actions": actions,
+                   "decode_ms": decode_ms, "apply_ms": apply_ms,
+                   "mapper_ms": mapper_ms, "map_all_host_ms": map_ms,
+                   "epoch_ms": ms(t_e), "commit_ms": gen[e]["commit_ms"],
+                   "inc_bytes": gen[e]["inc_bytes"]}
+            full = kv.get("osdmap", f"full_{e:08d}")
+            if full is not None:
+                t = time.perf_counter()
+                osdmap_from_bytes(full)
+                row["full_decode_ms"] = ms(t)
+            rows.append(row)
+            log(f"epoch {e} {row['kind']} timed: " + json.dumps(
+                {k: v for k, v in row.items() if k not in ("epoch", "kind")}))
+
+        # map_all by CUDA events (counted), K2 alone (not counted)
+        per_pool = {}
+        for pid, pm in mappers.items():
+            map_all_ms = cuda_ms(lambda i: pm.map_all(), EPOCH_ITERS)
+            calls += EPOCH_ITERS + 1
+            launches = mapper.crush_rule_batched.launches
+            w = pm.runtime_args()[0]
+            k2_ms = cuda_ms(lambda i: mapper.crush_rule_batched(
+                pm.arrays, pm.prog, w, pm.pps_i32), EPOCH_ITERS)
+            mapper.crush_rule_batched.launches = launches
+            per_pool[pid] = {"pg_num": pm.pool.pg_num, "size": pm.R,
+                             "map_all_ms": map_all_ms, "k2_ms": k2_ms}
+        out, err = tool.communicate(timeout=300)
+        rc, tool = tool.returncode, None
+        if rc != 0:
+            raise AssertionError(f"objectstore_tool exited {rc}: {err}")
+        listing = json.loads(out)
+        if listing.get("kv") != ["osdmap"]:
+            raise AssertionError(f"objectstore_tool --op list: {listing}")
+    finally:
+        pipeline.encode_map, pipeline.compile_rule = real
+        if tool is not None:
+            tool.kill()
+            tool.communicate()
+        tmp.cleanup()
+    launches = mapper.crush_rule_batched.launches
+    if launches != calls:
+        raise AssertionError(f"{calls} map_all calls of phase 11 launched "
+                             f"K2 {launches} times")
+    k2_epoch = sum(p["k2_ms"] for p in per_pool.values())
+    by_class = {}
+    for r in rows:
+        by_class.setdefault(_strongest(r["actions"]), []).append(r)
+    keys = ("decode_ms", "apply_ms", "mapper_ms", "map_all_host_ms",
+            "epoch_ms", "commit_ms", "inc_bytes")
+    summary = {c: {"epochs": len(v),
+                   **{k: float(np.median([r[k] for r in v])) for k in keys}}
+               for c, v in by_class.items()}
+    for c in summary.values():
+        c["k2_share"] = k2_epoch / c["epoch_ms"]
+    rec = {"epochs": last - e0, "mount_replay_ms": mount_ms,
+           "first_decode_ms": first_decode_ms,
+           "first_mappers_ms": first_map_ms,
+           "full_decode_ms": [r["full_decode_ms"] for r in rows
+                              if "full_decode_ms" in r],
+           "full_map_bytes": {e: g["full_bytes"] for e, g in gen.items()
+                              if "full_bytes" in g},
+           "bare_map_bytes": bare_bytes,
+           "checkpoint_ms": gen[e0 + EPOCH_CHECKPOINT]["checkpoint_ms"],
+           "by_class": summary, "mapper_actions": n_actions,
+           "map_all": per_pool, "k2_ms_an_epoch": k2_epoch,
+           "checked_rows": n_rows, "checked_by_mapper_ref": n_ref,
+           "map_all_calls": calls,
+           "phase_s": time.perf_counter() - t_phase}
+    return rec, calls
+
+
 def main():
     import tempfile
 
@@ -2996,6 +3658,16 @@ def main():
         mesh["launches"] = dict(zip(("k1", "k2", "k3"), launch_counts()))
         for k, n in zip((k1, k2, k3), launch_counts()):
             k["launches"] += n
+
+        # map epochs and the stores: every count at 0 before them
+        set_launch_counts((0, 0, 0))
+        epochs, epoch_calls = phase_epochs(dev, pool, big_map)
+        if launch_counts() != (0, epoch_calls, 0) or epoch_calls < 1:
+            raise AssertionError(f"phase 11: launches (K1, K2, K3) "
+                                 f"{launch_counts()}, expected (0, "
+                                 f"{epoch_calls}, 0)")
+        epochs["k2_launches"] = epoch_calls
+        k2["launches"] += epoch_calls
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
     for k in (k1, k2, k3):
@@ -3026,6 +3698,7 @@ def main():
                                    "k3_launches")}))
     log("mesh_phase: " + json.dumps(
         {key: mesh[key] for key in ("card", "phase_s", "launches")}))
+    log("epochs_phase: " + json.dumps({"card": card, **epochs}))
     log(f"gpu: {card}")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

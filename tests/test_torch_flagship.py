@@ -143,7 +143,12 @@ def test_port_never_imports_jax_or_the_jax_package(tmp_path):
                  "ec.jerasure", "ec.isa", "ec.shec", "ec.lrc", "ec.clay",
                  "ec.stripe", "tools.ec_benchmark",
                  "tools.ec_non_regression", "ec.layout", "ec.gf2_packet",
-                 "crush.mapper_spec"):
+                 "crush.mapper_spec", "common.bincode", "common.log",
+                 "common.compressor", "common.copytrack",
+                 "osdmap.incremental", "osdmap.bincode_maps",
+                 "services.pg_log", "analysis.faults",
+                 "analysis.racecheck", "os.objectstore", "os.memstore",
+                 "os.kv", "os.wal_store", "tools.objectstore_tool"):
         assert "ceph_tpu_torch." + name in modules
 
 
