@@ -9,9 +9,14 @@ Every injectable fault is a named failpoint; a hot path asks
 ``fires(name)`` and gets ``False`` after one module-global bool test
 (``_ACTIVE``) when nothing is armed.
 
-Arming is in-process, ``apply_spec(SPEC)`` or ``arm(...)`` (the
-Config observer and the ``fault`` admin-socket command of
-``ceph_tpu``'s copy come with the port's config and admin socket).
+Arming — three equivalent doors, all speaking one spec syntax:
+
+  * config: ``conf.set("fault_inject_spec", SPEC)`` on a Config that
+    ``install`` bound (every port ``Context`` does);
+  * admin socket: ``fault set|list|clear|seed`` on any port daemon
+    (``AdminSocket.request(path, "fault", mode="set", spec=SPEC)``),
+    registered by ``wire``;
+  * in-process: ``apply_spec(SPEC)`` / ``arm(...)``.
 
 Spec syntax (semicolon-separated failpoints)::
 
@@ -370,3 +375,48 @@ def sleep_if(name: str, who: Optional[str] = None,
         return False
     time.sleep(delay)
     return True
+
+
+# -- wiring -----------------------------------------------------------
+_installed_configs: set = set()
+
+
+def install(config) -> None:
+    """Bind a Config to the plane: apply the current
+    ``fault_inject_spec`` and track it live (observer).  Idempotent
+    per Config — daemons that share one Config need one observer."""
+    if "fault_inject_spec" not in config.schema:
+        return
+    if id(config) in _installed_configs:
+        return
+    _installed_configs.add(id(config))
+
+    def _cb(_name, value):
+        apply_spec(value or "")
+
+    config.add_observer("fault_inject_spec", _cb)
+    current = config["fault_inject_spec"]
+    if current:
+        apply_spec(current)
+
+
+def wire(sock) -> None:
+    """Register the ``fault`` admin-socket command:
+    ``fault mode=set spec=...`` | ``fault mode=list`` |
+    ``fault mode=clear [name=...]`` | ``fault mode=seed value=<n>``."""
+    def _h(a: Dict) -> Dict:
+        mode = a.get("mode", "list")
+        if mode == "set":
+            return apply_spec(a.get("spec", ""))
+        if mode == "clear":
+            clear(a.get("name"))
+            return list_faults()
+        if mode == "seed":
+            seed(int(a["value"]))
+            return {"seeded": int(a["value"])}
+        return list_faults()
+
+    sock.register("fault", _h,
+                  "fault injection: mode=set spec=<spec> | "
+                  "mode=list | mode=clear [name=] | mode=seed "
+                  "value=<n>")

@@ -162,6 +162,29 @@ Phases (any failure raises and the script exits non-zero):
    ``map_all`` of every pool), and ``map_all`` and K2 per pool by CUDA
    events.
 
+12. Client EC writes over the wire, with K1's and K3's counts at 0
+   before each run: a lossless primary ``Messenger`` built from a port
+   ``Context`` (its Config, tracer and perf collection, an admin socket,
+   a ``Throttle`` on ``ec_write``) and 16 lossy client messengers.  For
+   isa 8+3 (K1) and jerasure cauchy_good 4+2 packetsize 8 (K3), 1, 4
+   and 16 clients each send 32 writes of a 4 MiB object (one of 8 made
+   from a seed); the primary's handler (``wire_ec_write``) encodes the
+   object, a memoryview into its receive segment, through an
+   ``EncodeBatcher`` in an ``ec.encode`` span, brings the chunks back in
+   one copy, books both copies and replies with each chunk's crc32c
+   (the bytes on every 8th write).  Then the same writes to a wire-only
+   primary that computes the object's crc32c on the host.  Every reply
+   equals the same profile on the CPU; K1's or K3's launches equal the
+   batcher's groups (``ec.engine`` counters); no receive segment is
+   held and no span open at the end; ``perf dump`` and
+   ``dump_messenger`` are read through the admin socket.  Each run
+   prints writes/s, object GB/s, the median per-write split (request
+   on the wire, to the handler, ``encode_prepare``'s copy, batcher and
+   kernel, the copy back, crc32c, the reply), the bufpool's hit rate,
+   the copies booked an object and the kernels' share of the wall time
+   (the run's launches replayed in one CUDA graph, timed by CUDA
+   events).
+
 The scalar oracles run in worker processes (spawned, stopped at the
 end) beside the card's work.
 Tolerance is zero everywhere: every output is an integer.  Kernel times
@@ -173,15 +196,16 @@ operations over its peak rate for their type (published H100 SXM
 figures; K1's 1-bit products are counted at the int8 rate, which is
 lower).  It prints
 the card's name and power limit, one line per kernel, one ``kernels``
-JSON line (K1's launches: phases 4, 8, 9 and 10; K2's: phase 4's, one a
+JSON line (K1's launches: phases 4, 8, 9, 10 and 12; K2's: phase 4's, one a
 ``map_all`` call in phases 5, 6 and 11, one a sweep in phase 7, one a
 rule in phase 8, phase 9's cross-check and one a shard in phase 10;
-K3's: phases 9 and 10), K2's variants, the
+K3's: phases 9, 10 and 12), K2's variants, the
 flagship rates, the pipeline's rates, the balancer's records and time
 split, crushtool's record, one ``ec_plugins`` line per profile and
 workload, phase 9's ``layouts``, ``k3``, ``words`` and ``spec`` lines,
 phase 10's ``mesh`` lines, phase 11's ``epoch`` lines and its
-``epochs_phase`` record, and last the contract line
+``epochs_phase`` record, phase 12's ``wire`` lines and its
+``wire_phase`` record, and last the contract line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the rest of the repository beside it, it exits non-zero and prints no
 result.
@@ -3563,6 +3587,421 @@ def phase_epochs(dev, pool, m):
     return rec, calls
 
 
+# -- phase 12 ---------------------------------------------------------
+
+WIRE_OBJECT = EC_OBJECT     # 4 MiB: the default object size of RBD and CephFS
+WIRE_WRITERS = (1, 4, 16)   # client messengers writing at once
+WIRE_WRITES = 32            # writes a client
+WIRE_OBJECTS = 8            # distinct objects: client c's write i sends
+                            # object (7c + i) % 8
+WIRE_CHUNKS_EVERY = 8       # every 8th write's reply carries the chunk bytes
+WIRE_THROTTLE = 512 << 20   # bytes of ec_write frames in flight at the primary
+WIRE_PROFILES = MESH_PROFILES   # isa 8+3 (K1), cauchy_good 4+2 (K3)
+WIRE_SPLIT = ("wire_in", "to_handler", "prepare_copy", "batch_kernel",
+              "copy_back", "crc", "reply")
+
+
+class KernelClock:
+    """Replaces ``gf2_kernels.gf2_matmul_w8`` and ``gf2_packet.gf2_packet``
+    while open, recording each call's arguments (and its host time) on
+    the way to the real wrapper.  A wrapper counts its launches on the
+    name its module holds, the tap's while open: they go to the real
+    wrapper's count when the clock closes.  ``ms()``, called while
+    open, is the device time of the recorded launches replayed back to
+    back in one CUDA graph (the host's time between them, and the other
+    threads' work on the stream, left out; the replays count no launch);
+    on the CPU, the calls' summed host time."""
+
+    def __init__(self, dev):
+        self.dev = dev
+        self.calls = []
+        self.host_s = 0.0
+
+    def _wrap(self, real):
+        def tap(*args, **kw):
+            t = time.perf_counter()
+            out = real(*args, **kw)
+            self.host_s += time.perf_counter() - t
+            self.calls.append((real, args, kw))
+            return out
+
+        tap.launches = 0
+        return tap
+
+    def __enter__(self):
+        from ceph_tpu_torch.ec import gf2_kernels, gf2_packet
+
+        self.real = (gf2_kernels.gf2_matmul_w8, gf2_packet.gf2_packet)
+        self.taps = (self._wrap(self.real[0]), self._wrap(self.real[1]))
+        gf2_kernels.gf2_matmul_w8, gf2_packet.gf2_packet = self.taps
+        return self
+
+    def __exit__(self, *exc):
+        from ceph_tpu_torch.ec import gf2_kernels, gf2_packet
+
+        gf2_kernels.gf2_matmul_w8, gf2_packet.gf2_packet = self.real
+        for real, tap in zip(self.real, self.taps):
+            real.launches += tap.launches
+        self.calls = []
+        return False
+
+    def ms(self):
+        if self.dev.type != "cuda":
+            return self.host_s * 1e3
+        if not self.calls:
+            return 0.0
+        counts = [tap.launches for tap in self.taps]
+        calls = list(self.calls)
+
+        def replay(_i):
+            for real, args, kw in calls:
+                real(*args, **kw)
+
+        try:
+            return cuda_graph_ms(replay, 1, replays=3)
+        finally:
+            for tap, n in zip(self.taps, counts):
+                tap.launches = n
+
+
+class WirePrimary:
+    """Phase 12's primary: a lossless ``Messenger`` built from a port
+    ``Context`` (its Config, tracer and perf collection, an admin socket
+    in ``admin_dir``, a ``Throttle`` on ``ec_write``), an
+    ``EncodeBatcher`` and the codes by profile name.  ``encode=False``
+    makes it the wire-only primary (``wire_crc_write``)."""
+
+    def __init__(self, codes, admin_dir, encode=True, name="osd.0"):
+        from ceph_tpu_torch.common import copytrack
+        from ceph_tpu_torch.common.config import Config
+        from ceph_tpu_torch.common.context import Context
+        from ceph_tpu_torch.common.throttle import Throttle
+        from ceph_tpu_torch.ec.batcher import EncodeBatcher
+        from ceph_tpu_torch.msg.messenger import Messenger
+
+        conf = Config()
+        self.ctx = Context(name, config=conf, admin_dir=admin_dir)
+        self.asok = self.ctx.start_admin_socket()
+        self.throttle = Throttle("ec_write", WIRE_THROTTLE)
+        self.msgr = Messenger(name, lossless=True, tracer=self.ctx.tracer,
+                              perf=self.ctx.perf,
+                              throttles={"ec_write": self.throttle})
+        self.msgr.wire(self.asok)
+        self.ctx.tracer.wire(self.asok)
+        self.copy_pc = copytrack.ledger(self.ctx.perf)
+        self.batcher = EncodeBatcher(
+            max_delay_us=conf["ec_encode_batch_max_delay_us"])
+        self.codes = dict(codes)
+        self.prep = {}
+        for code in self.codes.values():
+            self._time_prepare(code)
+        handler = wire_ec_write if encode else wire_crc_write
+        self.msgr.register("ec_write", lambda msg: handler(self, msg))
+        self.msgr.start()
+
+    def _time_prepare(self, code):
+        """``encode_prepare``'s host time, by the object it was given
+        (its copy onto the card reads the pageable receive segment and
+        returns once it has read it)."""
+        real = code.encode_prepare
+
+        def timed(raw):
+            t = time.monotonic()
+            out = real(raw)
+            self.prep[id(raw)] = time.monotonic() - t
+            return out
+
+        code.encode_prepare = timed
+
+    def shutdown(self):
+        self.msgr.shutdown()
+        self.ctx.shutdown()
+
+
+def _handle_times(prim):
+    """(receipt, handler start) on the primary's clock: the handler span's
+    ``q_wait`` tag is the wait from frame receipt to handler start."""
+    t_h0 = time.monotonic()
+    sp = prim.ctx.tracer.current()
+    q_wait = sp.tags.get("q_wait", 0.0) if sp is not None else 0.0
+    return t_h0 - q_wait, t_h0
+
+
+def wire_ec_write(prim, msg):
+    """The primary's EC write (the shape of the OSD's, without the
+    store): the object, a memoryview into the frame's receive segment,
+    goes through the ``EncodeBatcher`` inside an ``ec.encode`` span; the
+    chunks come back to the host in one copy; both copies are booked in
+    the ``ec_assembly`` ledger; the reply holds each chunk's crc32c, and
+    the chunk bytes on every ``WIRE_CHUNKS_EVERY``-th write."""
+    import torch
+
+    from ceph_tpu_torch.common import copytrack
+    from ceph_tpu_torch.ec.stripe import crc32c
+
+    t_rx, t_h0 = _handle_times(prim)
+    code = prim.codes[msg["profile"]]
+    buf = msg["data"]
+    n, k = code.get_chunk_count(), code.get_data_chunk_count()
+    with prim.ctx.tracer.start_span(
+            "ec.encode", require_parent=True,
+            tags={"bytes": len(buf), "k": k, "m": n - k}):
+        chunks = prim.batcher.encode(code, range(n), buf)
+        t_enc = time.monotonic()
+        host = torch.stack([chunks[p] for p in range(n)]).cpu().numpy()
+    t_back = time.monotonic()
+    prep = prim.prep.pop(id(buf), 0.0)
+    copytrack.book_pc(prim.copy_pc, "ec_assembly", len(buf) + host.nbytes,
+                      copies=2)
+    reply = {"crc": [crc32c(host[p]) for p in range(n)]}
+    if msg["seq"] % WIRE_CHUNKS_EVERY == 0:
+        reply["chunks"] = [memoryview(host[p]) for p in range(n)]
+    t_h1 = time.monotonic()
+    reply["t"] = {"rx": t_rx, "h0": t_h0, "prep": prep, "enc": t_enc,
+                  "back": t_back, "h1": t_h1}
+    return reply
+
+
+def wire_crc_write(prim, msg):
+    """The wire-only primary's handler: crc32c of the received object on
+    the host, nothing else."""
+    from ceph_tpu_torch.ec.stripe import crc32c
+
+    t_rx, t_h0 = _handle_times(prim)
+    crc = crc32c(msg["data"])
+    t_h1 = time.monotonic()
+    return {"crc": [crc], "t": {"rx": t_rx, "h0": t_h0, "prep": 0.0,
+                                "enc": t_h0, "back": t_h0, "h1": t_h1}}
+
+
+def wire_expected(codes_cpu, objects):
+    """Each object's chunks from the same profile on the CPU (the plain
+    versions), their crc32c, and the object's own crc32c."""
+    from ceph_tpu_torch.ec.stripe import crc32c
+
+    exp = {}
+    for name, code in codes_cpu.items():
+        n = code.get_chunk_count()
+        rows = []
+        for raw in objects:
+            ch = code.encode(range(n), raw)
+            host = np.stack([ch[p].numpy() for p in range(n)])
+            rows.append((host, [crc32c(host[p]) for p in range(n)]))
+        exp[name] = rows
+    exp[None] = [(None, [crc32c(raw)]) for raw in objects]
+    return exp
+
+
+def wire_run(prim, clients, profile, objects, expected, writes=WIRE_WRITES,
+             timeout=120.0):
+    """``clients`` each send ``writes`` ``ec_write`` calls of ``profile``
+    (None: the wire-only primary) at once; every reply is held to
+    ``expected``.  Returns (per-write records, wall seconds)."""
+    import threading
+
+    recs, errs = [], []
+    lock = threading.Lock()
+    start = threading.Barrier(len(clients) + 1)
+
+    def client(c, cli):
+        try:
+            start.wait()
+            for i in range(writes):
+                obj = (7 * c + i) % len(objects)
+                t0 = time.monotonic()
+                rep = cli.call(prim.msgr.addr,
+                               {"type": "ec_write", "profile": profile,
+                                "seq": i, "obj": obj, "data": objects[obj]},
+                               timeout=timeout)
+                t1 = time.monotonic()
+                if "error" in rep:
+                    raise AssertionError(f"primary: {rep['error']}")
+                host, crcs = expected[profile][obj]
+                if rep["crc"] != crcs:
+                    raise AssertionError(
+                        f"{profile or 'wire-only'}: client {c} write {i} "
+                        f"crc32c {rep['crc']} != {crcs}")
+                if "chunks" in rep:
+                    got = [bytes(b) for b in rep["chunks"]]
+                    if got != [host[p].tobytes() for p in range(len(got))]:
+                        raise AssertionError(
+                            f"{profile}: client {c} write {i}: chunk bytes "
+                            f"differ from the CPU's")
+                t = rep["t"]
+                rec = {"wire_in": t["rx"] - t0,
+                       "to_handler": t["h0"] - t["rx"],
+                       "prepare_copy": t["prep"],
+                       "batch_kernel": t["enc"] - t["h0"] - t["prep"],
+                       "copy_back": t["back"] - t["enc"],
+                       "crc": t["h1"] - t["back"], "reply": t1 - t["h1"],
+                       "total": t1 - t0}
+                with lock:
+                    recs.append(rec)
+        except Exception as e:  # raised below
+            errs.append(e)
+
+    threads = [threading.Thread(target=client, args=(c, cli))
+               for c, cli in enumerate(clients)]
+    for t in threads:
+        t.start()
+    start.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errs:
+        raise errs[0]
+    return recs, wall
+
+
+def wire_quiesced(timeout=5.0):
+    """Wait for the port's receive segments to be released and its spans
+    to finish (a reply goes out before its segment is released);
+    returns what is still outstanding."""
+    from ceph_tpu_torch.common import bufpool, tracing
+
+    deadline = time.monotonic() + timeout
+    while True:
+        segs = bufpool.outstanding()
+        spans = tracing.active_spans()
+        if (not segs and not spans) or time.monotonic() > deadline:
+            return segs, spans
+        time.sleep(0.02)
+
+
+def _bufpool_counts():
+    from ceph_tpu_torch.common.perf_counters import collection
+
+    d = collection().dump().get("obs.bufpool", {})
+    return d.get("pool_hits", 0), d.get("pool_misses", 0)
+
+
+def _engine_counts():
+    from ceph_tpu_torch.common.perf_counters import collection
+
+    d = collection().dump()["ec.engine"]
+    return d["encode_ops"], sum(d["ec_batch_size"]["buckets"])
+
+
+def phase_wire(dev, admin_dir, card, writers=WIRE_WRITERS,
+               writes=WIRE_WRITES, size=WIRE_OBJECT):
+    """Phase 12: client EC writes over the messenger into K1 and K3.
+
+    ``max(writers)`` lossy client messengers write ``size``-byte objects
+    to a lossless primary (``WirePrimary``) that encodes each with isa
+    8+3 (K1) and jerasure cauchy_good 4+2 packetsize 8 (K3) on ``dev``;
+    then the same writes to a wire-only primary.  Every reply is held to
+    the same profile on the CPU; the receive segments, the spans, the
+    launches (one K1 or K3 launch a batcher group, from the
+    ``ec.engine`` counters) and the admin socket's ``perf dump`` and
+    ``dump_messenger`` are checked.  Returns (report, K1 launches, K3
+    launches)."""
+    import torch
+
+    from ceph_tpu_torch.common.admin_socket import AdminSocket
+    from ceph_tpu_torch.ec.registry import factory
+    from ceph_tpu_torch.msg.messenger import Messenger
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(12)
+    objects = [rng.integers(0, 256, size, dtype=np.uint8).tobytes()
+               for _ in range(WIRE_OBJECTS)]
+    names = [layout_label(p, prof) for p, prof in WIRE_PROFILES]
+    codes = {nm: factory(p, dict(prof), device=dev)
+             for nm, (p, prof) in zip(names, WIRE_PROFILES)}
+    expected = wire_expected(
+        {nm: factory(p, dict(prof), device="cpu")
+         for nm, (p, prof) in zip(names, WIRE_PROFILES)}, objects)
+    clients = [Messenger(f"client.{c}") for c in range(max(writers))]
+    for cli in clients:
+        cli.start()
+    prims = {"ec": WirePrimary(codes, admin_dir),
+             "wire": WirePrimary({}, admin_dir, encode=False, name="osd.1")}
+    out = {"card": card, "object_bytes": size, "writes_per_client": writes,
+           "runs": []}
+    k1_total = k3_total = 0
+    try:
+        # a warm-up write of each profile (the kernels' first calls)
+        for nm in names:
+            wire_run(prims["ec"], clients[:1], nm, objects, expected, 1)
+        for prof in names + [None]:
+            prim = prims["ec" if prof else "wire"]
+            for w in writers:
+                hits0, miss0 = _bufpool_counts()
+                copies0 = prim.copy_pc.dump()["copies"]
+                ops0, groups0 = _engine_counts()
+                set_launch_counts((0, 0, 0))
+                with KernelClock(dev) as clock:
+                    recs, wall = wire_run(prim, clients[:w], prof, objects,
+                                          expected, writes)
+                    kernel_ms = clock.ms()
+                k1, _, k3 = launch_counts()
+                ops, groups = _engine_counts()
+                ops, groups = ops - ops0, groups - groups0
+                hits, miss = _bufpool_counts()
+                hits, miss = hits - hits0, miss - miss0
+                n_w = len(recs)
+                if prof is not None:
+                    kern = k1 if prof.startswith("isa") else k3
+                    other = k3 if prof.startswith("isa") else k1
+                    if kern != groups or ops != groups or other or kern < 1:
+                        raise AssertionError(
+                            f"wire {prof} x{w}: launches (K1, K3) "
+                            f"({k1}, {k3}) for {groups} batcher groups and "
+                            f"{ops} encode calls")
+                    k1_total += k1
+                    k3_total += k3
+                elif k1 or k3:
+                    raise AssertionError("the wire-only run launched a kernel")
+                run = {"profile": prof or "wire-only", "writers": w,
+                       "writes": n_w, "wall_s": wall,
+                       "writes_per_s": n_w / wall,
+                       "object_GB_per_s": n_w * size / wall / 1e9,
+                       "median_ms": {key: float(np.median(
+                           [r[key] for r in recs])) * 1e3
+                           for key in WIRE_SPLIT + ("total",)},
+                       "bufpool_hit_rate": hits / max(1, hits + miss),
+                       "copies_per_object": (prim.copy_pc.dump()["copies"]
+                                             - copies0) / n_w,
+                       "launches": {"k1": k1, "k3": k3},
+                       "batcher_groups": groups,
+                       "kernel_ms": kernel_ms,
+                       "kernel_ms_per_launch": kernel_ms / max(1, k1 + k3),
+                       "kernel_share": kernel_ms / 1e3 / wall}
+                out["runs"].append(run)
+                log("wire: " + json.dumps(run))
+        segs, spans = wire_quiesced()
+        if segs:
+            raise AssertionError(f"receive segments still held: {segs[:4]}")
+        if spans:
+            raise AssertionError(f"spans left open: "
+                                 f"{[s.name for _, s in spans][:4]}")
+        asok = prims["ec"].ctx.admin_socket_path
+        perf = AdminSocket.request(asok, "perf dump")
+        frames = perf["msgr.osd.0"]["frames_in"]
+        msgr = AdminSocket.request(asok, "dump_messenger")
+        n_ec = len(names) * (sum(writers) * writes + 1)
+        if frames < n_ec or msgr["totals"]["frames_in"] != frames:
+            raise AssertionError(f"admin socket: perf dump frames_in "
+                                 f"{frames}, dump_messenger "
+                                 f"{msgr['totals']['frames_in']}, "
+                                 f"{n_ec} writes sent")
+        out["asok"] = {"frames_in": frames,
+                       "connections": msgr["num_connections"],
+                       "ec_assembly_copies":
+                           perf["obs.copy"]["ec_assembly_copies"],
+                       "bufpool": perf["obs.bufpool"]}
+    finally:
+        for cli in clients:
+            cli.shutdown()
+        for prim in prims.values():
+            prim.shutdown()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, k1_total, k3_total
+
+
 def main():
     import tempfile
 
@@ -3668,6 +4107,14 @@ def main():
                                  f"{epoch_calls}, 0)")
         epochs["k2_launches"] = epoch_calls
         k2["launches"] += epoch_calls
+
+        # client EC writes over the messenger: every count at 0 before
+        # each run, K1's and K3's launches asserted against the batcher
+        with tempfile.TemporaryDirectory() as admin_dir:
+            wire, wire_k1, wire_k3 = phase_wire(dev, admin_dir, card)
+        wire["launches"] = {"k1": wire_k1, "k3": wire_k3}
+        k1["launches"] += wire_k1
+        k3["launches"] += wire_k3
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
     for k in (k1, k2, k3):
@@ -3699,6 +4146,8 @@ def main():
     log("mesh_phase: " + json.dumps(
         {key: mesh[key] for key in ("card", "phase_s", "launches")}))
     log("epochs_phase: " + json.dumps({"card": card, **epochs}))
+    log("wire_phase: " + json.dumps(
+        {key: wire[key] for key in ("card", "phase_s", "launches", "asok")}))
     log(f"gpu: {card}")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

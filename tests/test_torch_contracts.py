@@ -16,6 +16,7 @@ from ceph_tpu.analysis import jaxcheck
 
 from ceph_tpu_torch.analysis import contracts
 from ceph_tpu_torch.ec.rs import RSCode
+from test_torch_ref_native import ref_native_built  # noqa: F401  (autouse)
 
 EXPECTED_CONTRACTS = {
     "ec.gf2_matmul_w8", "ec.gf2_matmul_words", "ec.gf2_packet",

@@ -25,6 +25,7 @@ from ceph_tpu.tools import crushtool as jtool
 
 from ceph_tpu_torch.tools import crushtool as ptool
 from ceph_tpu_torch.tools import rule_shapes
+from test_torch_ref_native import ref_native_built  # noqa: F401  (autouse)
 
 PORT_ENGINES = {"cpu": ["--device", "cpu"], "native": ["--native"],
                 "scalar": ["--scalar"]}

@@ -42,6 +42,7 @@ from ceph_tpu_torch.parallel.placement import (data_plane, data_plane_mesh,
                                                make_mesh,
                                                mesh_device_report)
 from ceph_tpu_torch.tools.tester import CrushTester
+from test_torch_ref_native import ref_native_built  # noqa: F401  (autouse)
 
 N_DEV = 8
 

@@ -34,6 +34,7 @@ from ceph_tpu_torch.ec import gf
 from ceph_tpu_torch.ec.native_gf import NativeMatrixCode
 from ceph_tpu_torch.ec.rs import RSCode
 from ceph_tpu_torch.parallel import placement
+from test_torch_ref_native import ref_native_built  # noqa: F401  (autouse)
 
 LOGGERS = ("ec.engine", "crush.mapper", "device")
 TIMES = {"encode_time", "decode_time", "jit_compile_time", "map_time",

@@ -25,6 +25,7 @@ from ceph_tpu.ec.interface import ErasureCodeError as JErasureCodeError
 from ceph_tpu_torch.crush.wrapper import CrushWrapper
 from ceph_tpu_torch.ec import registry
 from ceph_tpu_torch.ec.interface import ErasureCodeError
+from test_torch_ref_native import ref_native_built  # noqa: F401  (autouse)
 
 CPU = "cpu"
 

@@ -12,6 +12,7 @@ from ceph_tpu.tools import ec_benchmark as jec_benchmark
 
 from ceph_tpu_torch.ec import registry
 from ceph_tpu_torch.tools import ec_benchmark, ec_non_regression
+from test_torch_ref_native import ref_native_built  # noqa: F401  (autouse)
 
 
 def _line(capsys):

@@ -37,6 +37,7 @@ from ceph_tpu_torch.osdmap.pipeline import PoolMapper
 from ceph_tpu_torch.parallel.placement import PlacementPlane
 from ceph_tpu_torch.tools import crushtool
 from ceph_tpu_torch.tools.tester import CrushTester
+from test_torch_ref_native import ref_native_built  # noqa: F401  (autouse)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 CPU = "cpu"
@@ -148,7 +149,13 @@ def test_port_never_imports_jax_or_the_jax_package(tmp_path):
                  "osdmap.incremental", "osdmap.bincode_maps",
                  "services.pg_log", "analysis.faults",
                  "analysis.racecheck", "os.objectstore", "os.memstore",
-                 "os.kv", "os.wal_store", "tools.objectstore_tool"):
+                 "os.kv", "os.wal_store", "tools.objectstore_tool",
+                 "common.backoff", "common.version", "common.throttle",
+                 "common.config", "common.tracing", "analysis.watchdog",
+                 "analysis.asyncheck", "common.admin_socket",
+                 "common.metrics_history", "common.profiler",
+                 "common.context", "common.op_tracker", "common.op_queue",
+                 "common.bufpool", "msg.auth", "msg.messenger"):
         assert "ceph_tpu_torch." + name in modules
 
 

@@ -31,6 +31,7 @@ from ceph_tpu_torch.crush import native
 from ceph_tpu_torch.crush.map import ChooseArg, ChooseArgMap, CrushMap
 from ceph_tpu_torch.crush.mapper import BatchedMapper
 from ceph_tpu_torch.tools import rule_shapes
+from test_torch_ref_native import ref_native_built  # noqa: F401  (autouse)
 
 GOLDEN_MAPS = ("map_big10k", "map_flat12", "map_tree3", "map_weird",
                "map_list", "map_straw", "map_uniform",
