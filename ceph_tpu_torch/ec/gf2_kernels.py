@@ -11,7 +11,8 @@ inverted survivor matrix).
 ``gf2_matmul_w8`` launches the hand-written CUDA kernel
 (``csrc/gf2_matmul_w8.cu``) on CUDA tensors and runs
 ``gf2_matmul_w8_plain`` on CPU tensors; on any other device it raises.
-``gf2_matmul_w8.launches`` counts the kernel's launches.  The kernel
+``gf2_matmul_w8.launches`` counts the kernel's launches (under a lock:
+many daemon threads launch at once).  The kernel
 takes the bit matrix as tensor-core fragments, which
 ``gf2_fragments`` builds on the card once per matrix.
 
@@ -31,6 +32,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -40,6 +42,10 @@ from .layout import Layout
 MAX_K = 32   # input rows: the kernel's table of row pointers
 MAX_M = 32   # output rows
 MAX_BATCH = 65535  # stripes per launch
+
+
+# guards the wrappers' launch counts (K1's here, K3's in gf2_packet)
+COUNT_LOCK = threading.Lock()
 
 
 def gf2_matmul_w8_plain(bm_bits: torch.Tensor,
@@ -217,7 +223,8 @@ def gf2_matmul_w8(bm_bits: torch.Tensor, data,
                                          stream)
     if rc != 0:
         raise RuntimeError(f"gf2_matmul_w8 launch failed: cudaError {rc}")
-    gf2_matmul_w8.launches += 1
+    with COUNT_LOCK:
+        gf2_matmul_w8.launches += 1
     return out
 
 

@@ -25,7 +25,7 @@ import ctypes
 import torch
 
 from .. import build
-from .gf2_kernels import _check_rows, _on
+from .gf2_kernels import COUNT_LOCK, _check_rows, _on
 from .layout import Layout
 
 MAX_ROWS = 32     # input and output chunks: the kernel's row tables
@@ -213,7 +213,8 @@ def gf2_packet(bm_bits: torch.Tensor, data, w: int, packetsize: int,
                          _stream(device.index))
     if rc != 0:
         raise RuntimeError(f"gf2_packet launch failed: cudaError {rc}")
-    gf2_packet.launches += 1
+    with COUNT_LOCK:
+        gf2_packet.launches += 1
     return out
 
 

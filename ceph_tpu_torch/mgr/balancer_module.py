@@ -7,20 +7,26 @@ evaluation of cluster balance is one ``PoolMapper.map_all`` per pool on
 ``calc_pg_upmaps`` drives down, and ``run_offline`` closes the loop
 against an offline map.  The mappers are cached across rounds, so a
 re-sweep only lowers its upmap tables again (``refresh_tables``).
-The mgr daemon around this core (``BalancerModule``: pausing on
-degraded health, proposals to the monitor) is not ported yet.
+``BalancerModule`` is the mgr daemon's module around this core: it
+pauses while the monitor reports the cluster degraded, sweeps a private
+copy of the daemon's map on the daemon's device, and proposes each
+changed ``pg_upmap_items`` entry to the monitor.
 """
 
 from __future__ import annotations
 
 import math
 import time
+from collections import deque
 from typing import Dict, List, Optional, Set, Tuple
 
+from ..analysis import faults
+from ..analysis.lockdep import make_lock
 from ..crush.wrapper import CrushWrapper
 from ..osdmap.balancer import (build_pgs_by_osd, calc_pg_upmaps,
                                distribution_score, target_osd_weights)
 from ..osdmap.osdmap import OSDMap
+from .daemon import MgrModule
 
 PgId = Tuple[int, int]
 
@@ -194,3 +200,217 @@ def diff_upmap_items(old: Dict[PgId, List], new: Dict[PgId, List]
         if pgid not in new:
             out.append((pgid, []))
     return out
+
+
+class BalancerModule(MgrModule):
+    """The closed loop as a mgr module (`ceph balancer on` role)."""
+
+    NAME = "balancer"
+
+    def __init__(self, mgr):
+        super().__init__(mgr)
+        self.active = False
+        self.paused = False
+        self.last_eval: Optional[Dict] = None
+        self.last_round: Optional[Dict] = None
+        self.rounds = 0
+        self.stale_discards = 0
+        # every proposal batch with the health status it was decided
+        # under — the thrasher's no-proposals-while-degraded gate
+        # audits this log
+        self.proposal_log: deque = deque(maxlen=128)
+        self.degraded_proposals = 0
+        # one round at a time: the tick thread and an admin-socket
+        # `balancer execute` must not interleave their sweeps
+        self._round_lock = make_lock("mgr::balancer_round")
+
+    @property
+    def interval(self) -> float:
+        return float(self.mgr.ctx.conf["balancer_interval"])
+
+    # -- health / status ----------------------------------------------
+    def health_checks(self) -> Dict[str, str]:
+        if self.active and self.paused:
+            return {"BALANCER_PAUSED":
+                    "balancer paused while cluster is degraded"}
+        return {}
+
+    def status(self) -> Dict:
+        return {"active": self.active,
+                "paused": self.paused,
+                "rounds": self.rounds,
+                "stale_discards": self.stale_discards,
+                "proposals": len(self.proposal_log),
+                "degraded_proposals": self.degraded_proposals,
+                "last_eval": self.last_eval,
+                "last_round": self.last_round}
+
+    # -- admin-socket command surface ---------------------------------
+    def command(self, args: Dict) -> Dict:
+        argv = [str(a) for a in (args.get("argv") or [])]
+        verb = argv[0] if argv else "status"
+        if verb == "status":
+            return self.status()
+        if verb == "on":
+            self.active = True
+            self.mgr._wake.set()
+            return {"success": "balancer on"}
+        if verb == "off":
+            self.active = False
+            return {"success": "balancer off"}
+        if verb == "eval":
+            snap = self._snapshot()
+            if snap is None:
+                return {"error": "no map yet"}
+            m, w, _epoch = snap
+            ev = evaluate(m, w, device=self.mgr.device)
+            self.pc.inc("balancer_sweep_launches",
+                        ev["sweep_launches"])
+            self.last_eval = ev
+            return ev
+        if verb == "execute":
+            rec = self._run_round(force=True)
+            return rec if rec is not None else {"error": "no map yet"}
+        return {"error": f"unknown balancer verb {verb!r}; have "
+                         "status|on|off|eval|execute"}
+
+    # -- the loop ------------------------------------------------------
+    def tick(self) -> None:
+        if not self.active:
+            return
+        self._run_round(force=False)
+
+    def _snapshot(self):
+        """Private (map copy, wrapper, epoch) — calc mutates its map."""
+        with self.mgr._lock:
+            if self.mgr.map is None:
+                return None
+            d = self.mgr.map.to_dict()
+            epoch = self.mgr.epoch
+        m = OSDMap.from_dict(d)
+        return m, CrushWrapper(m.crush), epoch
+
+    def _degraded(self, health: Dict) -> bool:
+        codes = set(health.get("check_codes") or [])
+        return bool(codes & {"PG_DEGRADED", "OSD_DOWN"})
+
+    def _run_round(self, force: bool) -> Optional[Dict]:
+        with self._round_lock:
+            return self._run_round_locked(force)
+
+    def _run_round_locked(self, force: bool) -> Optional[Dict]:
+        conf = self.mgr.ctx.conf
+        try:
+            health = self.mgr.mon_call({"type": "health"},
+                                       timeout=3.0)
+        except Exception as e:  # next tick re-probes
+            self.log.dout(5, f"balancer: health unavailable {e!r}")
+            return None
+        if self._degraded(health) and not force:
+            # recovery in flight — balancing now would fight it for
+            # the same PGs (the reference's no-optimize gate,
+            # balancer module.py:Mode busy checks)
+            self.paused = True
+            self.pc.inc("balancer_paused")
+            self.log.dout(4, "balancer: paused (cluster degraded)")
+            return None
+        self.paused = False
+
+        snap = self._snapshot()
+        if snap is None:
+            return None
+        m, wrapper, epoch = snap
+        old_items = {pg: list(v) for pg, v in m.pg_upmap_items.items()}
+
+        ev = evaluate(m, wrapper, device=self.mgr.device)
+        self.pc.inc("balancer_sweep_launches", ev["sweep_launches"])
+        self.pc.set("balancer_stddev", ev["stddev"])
+        self.pc.set("balancer_score", ev["score"])
+        self.last_eval = ev
+        self.rounds += 1
+        self.pc.inc("balancer_rounds")
+
+        # a sweep that raced a newer epoch (or the armed failpoint)
+        # evaluated a stale map: discard the round, never propose
+        # from it
+        stale = self.mgr.epoch != epoch
+        if faults._ACTIVE and faults.fires("mgr.balancer.stale_map",
+                                           self.mgr.name):
+            stale = True
+        if stale:
+            self.stale_discards += 1
+            self.log.dout(2, f"balancer: stale sweep (epoch {epoch} "
+                             f"vs {self.mgr.epoch}); discarding")
+            return None
+
+        rec: Dict = {"epoch": epoch,
+                     "stddev_before": round(ev["stddev"], 4),
+                     "health": health.get("status")}
+        if ev["max_dev"] <= int(conf["balancer_max_deviation"]):
+            rec.update(balanced=True, proposed=0)
+            self.last_round = rec
+            return rec
+
+        changed = calc_pg_upmaps(
+            m, max_deviation=int(conf["balancer_max_deviation"]),
+            max_iterations=int(conf["balancer_max_iterations"]),
+            wrapper=wrapper, use_batched=True, seed=self.rounds,
+            device=self.mgr.device)
+        rec["balanced"] = False
+        if not changed:
+            rec["proposed"] = 0
+            self.last_round = rec
+            return rec
+
+        proposals = diff_upmap_items(old_items, m.pg_upmap_items)
+        sent = 0
+        commit_epoch = epoch
+        for pgid, items in proposals:
+            try:
+                rep = self.mgr.mon_call(
+                    {"type": "pg_upmap_items_set",
+                     "pool": pgid[0], "ps": pgid[1], "items": items})
+            except Exception as e:  # rest retried next round
+                self.log.dout(2, f"balancer: propose {pgid} failed "
+                                 f"{e!r}")
+                break
+            if "error" in rep:
+                self.log.dout(2, f"balancer: mon rejected {pgid}: "
+                                 f"{rep['error']}")
+                continue
+            sent += 1
+            commit_epoch = max(commit_epoch, int(rep.get("epoch", 0)))
+        self.pc.inc("balancer_upmaps_proposed", sent)
+        if self._degraded(health):
+            self.degraded_proposals += 1  # force=True path only
+        self.proposal_log.append(
+            {"epoch": epoch, "proposed": sent,
+             "health": health.get("status"),
+             "degraded": self._degraded(health)})
+        rec["proposed"] = sent
+
+        # verify: wait for our own subscription to observe the
+        # committed epoch, then one more batched sweep — the stddev
+        # must actually have dropped
+        from ..common.backoff import Backoff
+
+        bo = Backoff(base=0.05, cap=0.3, deadline=5.0)
+        while self.mgr.epoch < commit_epoch:
+            if not bo.sleep():
+                break
+        snap = self._snapshot()
+        if snap is not None:
+            m2, w2, _e2 = snap
+            ev2 = evaluate(m2, w2, device=self.mgr.device)
+            self.pc.inc("balancer_sweep_launches",
+                        ev2["sweep_launches"])
+            self.pc.set("balancer_stddev", ev2["stddev"])
+            self.pc.set("balancer_score", ev2["score"])
+            rec["stddev_after"] = round(ev2["stddev"], 4)
+            rec["improved"] = ev2["stddev"] < ev["stddev"]
+            if not rec["improved"]:
+                self.log.dout(2, f"balancer: round did not improve "
+                                 f"({ev['stddev']:.3f} -> "
+                                 f"{ev2['stddev']:.3f})")
+        self.last_round = rec
+        return rec

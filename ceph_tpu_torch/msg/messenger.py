@@ -1376,6 +1376,10 @@ class Messenger:
             if sock is not None:
                 return sock
             sock = socket.create_connection(addr, timeout=5)
+            # the 5 s bound is the dial's: left on the socket, it would
+            # end the reader (and every call waiting on it) whenever the
+            # peer is silent for 5 s, as a slow reply is
+            sock.settimeout(None)
             sock.setsockopt(socket.IPPROTO_TCP,
                             socket.TCP_NODELAY, 1)
             self._conns[addr] = sock

@@ -184,6 +184,26 @@ Phases (any failure raises and the script exits non-zero):
    the copies booked an object and the kernels' share of the wall time
    (the run's launches replayed in one CUDA graph, timed by CUDA
    events).
+13. A live cluster on the card (``phase_cluster``): a ``MiniCluster`` of
+   3 monitors and 12 OSDs on 12 hosts with ``device`` the card, a
+   replicated pool (size 3), isa 8+3 (K1) and jerasure cauchy_good 4+2
+   packetsize 8 (K3), 32 PGs each.  8 clients write 64 objects of 4 MiB
+   to each EC pool and read them back; one read-modify-write a pool; an
+   image of 64 MiB on the isa pool in 4 MiB objects.  Two OSDs holding
+   shards are killed (marked down) one after the other, every object
+   read degraded after each; the monitor marks them out after
+   ``mon_osd_down_out_interval``, both come back with empty stores and
+   recovery rebuilds their shards.  Then the mgr forces a balancer
+   round.  Every read equals the bytes written; every shard in every
+   store, before the kills and after recovery, equals the same profile's
+   chunk on the CPU (sha256, computed in the workers); the proposals
+   equal the offline ``calc_pg_upmaps`` on the same map and the monitor
+   commits them; K1's and K3's launches equal the EC engine's calls by
+   route and kind (encode and decode both), K2's the balancer's
+   ``map_all`` calls; no segment is held and no span open at the end.
+   It prints writes/s, GB/s and write latencies, degraded-read and
+   recovery times, the balancer round's seconds and the kernels' share
+   of the data path's wall time (a CUDA graph of the run's launches).
 
 The scalar oracles run in worker processes (spawned, stopped at the
 end) beside the card's work.
@@ -196,16 +216,17 @@ operations over its peak rate for their type (published H100 SXM
 figures; K1's 1-bit products are counted at the int8 rate, which is
 lower).  It prints
 the card's name and power limit, one line per kernel, one ``kernels``
-JSON line (K1's launches: phases 4, 8, 9, 10 and 12; K2's: phase 4's, one a
-``map_all`` call in phases 5, 6 and 11, one a sweep in phase 7, one a
-rule in phase 8, phase 9's cross-check and one a shard in phase 10;
-K3's: phases 9, 10 and 12), K2's variants, the
+JSON line (K1's launches: phases 4, 8, 9, 10, 12 and 13; K2's: phase
+4's, one a ``map_all`` call in phases 5, 6, 11 and 13, one a sweep in
+phase 7, one a rule in phase 8, phase 9's cross-check and one a shard
+in phase 10; K3's: phases 9, 10, 12 and 13), K2's variants, the
 flagship rates, the pipeline's rates, the balancer's records and time
 split, crushtool's record, one ``ec_plugins`` line per profile and
 workload, phase 9's ``layouts``, ``k3``, ``words`` and ``spec`` lines,
 phase 10's ``mesh`` lines, phase 11's ``epoch`` lines and its
 ``epochs_phase`` record, phase 12's ``wire`` lines and its
-``wire_phase`` record, and last the contract line
+``wire_phase`` record, phase 13's ``cluster`` lines and its
+``cluster_phase`` record, and last the contract line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the rest of the repository beside it, it exits non-zero and prints no
 result.
@@ -3613,16 +3634,21 @@ class KernelClock:
     on the CPU, the calls' summed host time."""
 
     def __init__(self, dev):
+        import threading
+
         self.dev = dev
         self.calls = []
         self.host_s = 0.0
+        self._lock = threading.Lock()   # daemon threads launch at once
 
     def _wrap(self, real):
         def tap(*args, **kw):
             t = time.perf_counter()
             out = real(*args, **kw)
-            self.host_s += time.perf_counter() - t
-            self.calls.append((real, args, kw))
+            dt = time.perf_counter() - t
+            with self._lock:
+                self.host_s += dt
+                self.calls.append((real, args, kw))
             return out
 
         tap.launches = 0
@@ -4002,6 +4028,631 @@ def phase_wire(dev, admin_dir, card, writers=WIRE_WRITERS,
     return out, k1_total, k3_total
 
 
+CLUSTER_OSDS = 12          # 12 OSDs on 12 hosts, failure domain host
+CLUSTER_MONS = 3
+CLUSTER_PG_NUM = 32        # Quincy's osd_pool_default_pg_num
+CLUSTER_CLIENTS = 8
+CLUSTER_OBJECTS = 64       # objects written to each EC pool
+CLUSTER_OBJECT = EC_OBJECT  # 4 MiB: RBD's and CephFS's object size
+CLUSTER_IMAGE = 64 << 20   # the image's size, in 4 MiB objects
+CLUSTER_RMW = (3 << 19, 1 << 20)   # (offset, length) of the overwrite
+CLUSTER_REP = 1            # the replicated pool (size 3)
+CLUSTER_EC = (             # (pool id, profile name, profile, kernel)
+    (2, "isa8_3", {"plugin": "isa", "k": "8", "m": "3"}, "k1"),
+    (3, "cauchy4_2", {"plugin": "jerasure", "technique": "cauchy_good",
+                      "k": "4", "m": "2", "w": "8", "packetsize": "8"},
+     "k3"),
+)
+CLUSTER_WAIT = 120.0       # seconds any wait of the phase may take
+CLUSTER_OUT_S = 5.0        # mon_osd_down_out_interval
+CLUSTER_ROUNDS = 5         # balancer rounds before one commits whole
+
+
+def cluster_object(spec):
+    """An object's bytes from its spec: ("rng", seed, size[, (offset,
+    length, seed)]) draws ``size`` bytes from ``seed`` and overwrites
+    ``length`` bytes at ``offset`` with bytes drawn from the second
+    seed; ("slice", seed, size, lo, hi) is bytes [lo, hi) of such a draw;
+    ("bytes", raw) is ``raw``."""
+    if spec[0] == "bytes":
+        return bytes(spec[1])
+    rng = np.random.default_rng(spec[1])
+    data = rng.integers(0, 256, spec[2], dtype=np.uint8)
+    if spec[0] == "slice":
+        return data[spec[3]:spec[4]].tobytes()
+    if len(spec) > 3:
+        off, ln, seed = spec[3]
+        data[off:off + ln] = np.random.default_rng(seed).integers(
+            0, 256, ln, dtype=np.uint8)
+    return data.tobytes()
+
+
+def cluster_digests(profile, spec):
+    """sha256 of each chunk of ``spec``'s object under ``profile`` on the
+    CPU (the plain versions), in chunk order; None for a replicated
+    object, whose one shard is the object itself."""
+    import hashlib
+
+    import torch
+
+    from ceph_tpu_torch.ec.registry import profile_factory
+
+    torch.set_num_threads(1)   # one core a worker
+    raw = cluster_object(spec)
+    if profile is None:
+        return [hashlib.sha256(raw).hexdigest()]
+    code = profile_factory(dict(profile), device="cpu")
+    n = code.get_chunk_count()
+    chunks = code.encode(range(n), raw)
+    return [hashlib.sha256(chunks[p].numpy().tobytes()).hexdigest()
+            for p in range(n)]
+
+
+def cluster_shards(cl):
+    """{(pool, oid, shard): [(osd, sha256, bytes)]} of every shard in
+    every live OSD's store (a shard held twice, by a stray and its new
+    holder, is listed once a holder)."""
+    import hashlib
+
+    out = {}
+    for osd, svc in sorted(cl.osds.items()):
+        st = svc.store
+        for cid in st.list_collections():
+            pool = int(cid.split(".")[0])
+            for name in st.list_objects(cid):
+                oid, _, shard = name.rpartition(".s")
+                if not shard.isdigit():
+                    continue
+                raw = bytes(st.read(cid, name))
+                out.setdefault((pool, oid, int(shard)), []).append(
+                    (osd, hashlib.sha256(raw).hexdigest(), len(raw)))
+    return out
+
+
+def check_cluster_shards(cl, expected, label):
+    """Every shard in every store equals the CPU's chunk, and every
+    object's every chunk is in some store.  Returns {(pool, oid, shard):
+    {holder: bytes}}."""
+    held = cluster_shards(cl)
+    for (pool, oid, shard), holders in held.items():
+        want = expected.get((pool, oid))
+        if want is None:
+            raise AssertionError(f"{label}: unknown shard {oid}.s{shard} "
+                                 f"in pool {pool}")
+        for osd, digest, _n in holders:
+            if digest != want[shard]:
+                raise AssertionError(
+                    f"{label}: pool {pool} {oid}.s{shard} on osd.{osd} "
+                    f"differs from the CPU's chunk")
+    for (pool, oid), want in expected.items():
+        for shard in range(len(want)):
+            if (pool, oid, shard) not in held:
+                raise AssertionError(f"{label}: pool {pool} {oid}.s{shard} "
+                                     f"is in no store")
+    return {key: {osd: n for osd, _d, n in holders}
+            for key, holders in held.items()}
+
+
+def cluster_settled(cl):
+    """True when every PG has reported active+clean to the monitor."""
+    pgs = cl.health()["pgmap"]
+    return pgs["pgs_reported"] == pgs["pgs_total"] and \
+        set(pgs["by_state"]) == {"active+clean"}
+
+
+def cluster_landed(cl, specs, profiles):
+    """True when every object of ``specs`` has every shard on the OSD of
+    its up set's position, all at one version."""
+    from ceph_tpu_torch.services.client import object_to_ps
+
+    m = _map_of(cl)
+    for (pool, oid) in specs:
+        ps = object_to_ps(oid) % m.pools[pool].pg_num
+        up, _p, _a, _ap = m.pg_to_up_acting_osds(pool, ps)
+        versions = set()
+        for pos, osd in enumerate(up):
+            svc = cl.osds.get(osd)
+            if svc is None:
+                return False
+            shard = pos if profiles[pool] is not None else 0
+            try:
+                v = svc.store.getattr(f"{pool}.{ps}", f"{oid}.s{shard}",
+                                      "v")
+            except KeyError:
+                return False
+            if v is None:
+                return False
+            versions.add(v)
+        if len(versions) != 1:
+            return False
+    return True
+
+
+class EngineTally:
+    """Counts the EC engine's calls by kind and route while open: each
+    booking of ``ec.engine._account`` is one launch of K3 (a packet
+    layout) or K1 (w=8), for encode or decode."""
+
+    def __init__(self):
+        import threading
+
+        self.counts = {}
+        self._lock = threading.Lock()
+
+    def __enter__(self):
+        from ceph_tpu_torch.ec import engine
+
+        self.real = engine._account
+
+        def tap(kind, sig, *a, **kw):
+            route = "k3" if sig[4] else "k1"   # sig[4]: the packet size
+            with self._lock:
+                self.counts[(route, kind)] = \
+                    self.counts.get((route, kind), 0) + 1
+            return self.real(kind, sig, *a, **kw)
+
+        engine._account = tap
+        return self
+
+    def __exit__(self, *exc):
+        from ceph_tpu_torch.ec import engine
+
+        engine._account = self.real
+        return False
+
+    def get(self, route, kind):
+        return self.counts.get((route, kind), 0)
+
+
+def _map_of(cl):
+    from ceph_tpu_torch.osdmap.bincode_maps import payload_map
+
+    return payload_map(cl.mon_command({"type": "get_map"}))
+
+
+def _wait_for(cond, what, timeout=CLUSTER_WAIT):
+    """Wait for ``cond()`` (polled every 50 ms) under a deadline."""
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"phase 13: {what} after {timeout} s")
+        time.sleep(0.05)
+
+
+def _pmap(fn, items, n):
+    """``fn`` over ``items`` on ``n`` threads (item i on thread i % n);
+    returns the results in order, raising the first error."""
+    import threading
+
+    out = [None] * len(items)
+    errs = []
+
+    def run(t):
+        try:
+            for i in range(t, len(items), n):
+                out[i] = fn(t, items[i])
+        except Exception as e:  # raised below
+            errs.append(e)
+
+    threads = [threading.Thread(target=run, args=(t,)) for t in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errs:
+        raise errs[0]
+    return out
+
+
+def _ms_stats(xs):
+    xs = np.asarray(xs, dtype=np.float64) * 1e3
+    return {"p50_ms": float(np.percentile(xs, 50)),
+            "p99_ms": float(np.percentile(xs, 99)),
+            "mean_ms": float(xs.mean()), "n": int(xs.size)}
+
+
+def phase_cluster(dev, card, pool=None, osds=CLUSTER_OSDS, mons=CLUSTER_MONS,
+                  pg_num=CLUSTER_PG_NUM, clients=CLUSTER_CLIENTS,
+                  objects=CLUSTER_OBJECTS, size=CLUSTER_OBJECT,
+                  image=CLUSTER_IMAGE, rmw=CLUSTER_RMW):
+    """Phase 13: a live ``MiniCluster`` on ``dev``.
+
+    ``mons`` monitors, ``osds`` OSDs on as many hosts, a replicated pool
+    (size 3) and two EC pools (isa 8+3, K1; jerasure cauchy_good 4+2
+    packetsize 8, K3) of ``pg_num`` PGs.  ``clients`` clients write
+    ``objects`` seeded objects of ``size`` bytes to each EC pool, read
+    them back, overwrite part of one (read-modify-write) in each, and an
+    image on the isa pool writes and reads ``image`` bytes.  One OSD is
+    killed (marked down), every object read degraded; a second, and
+    again.  Once the monitor has marked both out
+    (``mon_osd_down_out_interval``) both come back with empty stores
+    (replaced disks: with 11 of 12 hosts in, CRUSH leaves a position of
+    some 8+3 PG empty) and recovery rebuilds every lost shard.  Then
+    the mgr runs one forced balancer round, held to the offline
+    ``calc_pg_upmaps`` on the same map, and the monitor commits it.
+
+    Every read is held to the bytes written; every shard in every store,
+    before the kills and after recovery, to the same profile's encode on
+    the CPU (sha256 of each chunk, computed in ``pool``'s workers when
+    given); K1's and K3's launches to the EC engine's calls by route and
+    kind, and K2's to the balancer's ``map_all`` calls.  Returns (report,
+    (K1, K2, K3) launches)."""
+    import torch
+
+    from ceph_tpu_torch.common.config import Config
+    from ceph_tpu_torch.common.perf_counters import collection
+    from ceph_tpu_torch.services.client import object_to_ps
+    from ceph_tpu_torch.services.cluster import MiniCluster
+    from ceph_tpu_torch.services.image import Image, encode_header
+
+    t_phase = time.perf_counter()
+    conf = Config()
+    # failure detection is the monitor's command here (mark_down), so
+    # pings are sparse and their grace wide: 12 OSDs in one process
+    # pinging every 0.5 s fill every OSD's control lane (both packages),
+    # and neither a loaded host nor the killed OSDs may be marked down
+    # before the degraded reads are done
+    conf.set("osd_heartbeat_interval", 5.0)
+    conf.set("osd_heartbeat_grace", 600.0)
+    # and the monitors' leases are long: a busy host must not send the
+    # quorum into elections (no monitor is killed here)
+    conf.set("mon_lease", 3.0)
+    conf.set("mon_election_timeout", 3.0)
+    # the monitor marks a down OSD out after this (an out remaps EC
+    # positions, and a read finds fewer than k shards until recovery has
+    # moved them: the OSDs are marked down once the reads are done)
+    conf.set("mon_osd_down_out_interval", CLUSTER_OUT_S)
+    # recovery slots an OSD grants: Quincy's osd_recovery_max_active_ssd
+    # (an 8+3 PG reserves a slot on all 11 of its OSDs; at the HDD
+    # default of 3 the cluster recovers three PGs at a time)
+    conf.set("osd_max_recovery_ops", 10)
+    # and PGs an OSD recovers at once (Quincy's default is 1; its
+    # high_recovery_ops profile lifts it)
+    conf.set("osd_max_backfills", 4)
+    conf.set("balancer_max_deviation", 1)
+    cl = MiniCluster(n_osds=osds, config=conf, n_mons=mons,
+                     device=dev).start()
+    out = {"card": card, "osds": osds, "mons": mons, "pg_num": pg_num,
+           "clients": clients, "objects_per_pool": objects,
+           "object_bytes": size, "image_bytes": image}
+    specs = {}          # (pool, oid) -> the object's spec
+    down = False
+    profiles = {CLUSTER_REP: None}
+    digests = {}
+    try:
+        cl.create_replicated_pool(CLUSTER_REP, pg_num=pg_num, size=3)
+        for pid, name, prof, _k in CLUSTER_EC:
+            cl.create_ec_pool(pid, name, dict(prof), pg_num=pg_num)
+            profiles[pid] = prof
+        # the new PGs peer before the first write
+        cl.wait_for_health_ok(timeout=CLUSTER_WAIT)
+        clis = [cl.client(f"c{j}") for j in range(clients)]
+        out["setup_s"] = time.perf_counter() - t_phase
+        for pid, _n, _p, _k in CLUSTER_EC:
+            for i in range(objects):
+                specs[(pid, f"obj{i}")] = ("rng", (13, pid, i), size)
+        ec_pids = [pid for pid, *_ in CLUSTER_EC]
+        names = sorted({oid for _p, oid in specs})
+        rmw_oid = names[0]
+        unit = 4 << 20 if image % (4 << 20) == 0 else image // 4
+        img_seed = (13, 0, 1)
+
+        def expect(key, spec):
+            if pool is None:
+                digests[key] = cluster_digests(profiles[key[0]], spec)
+            else:
+                digests[key] = pool.submit(cluster_digests,
+                                           profiles[key[0]], spec)
+
+        # the CPU's chunks of every object, in the workers while the
+        # cluster runs (an overwritten object's are asked for again)
+        for key, spec in specs.items():
+            expect(key, spec)
+        set_launch_counts((0, 0, 0))
+        tally = EngineTally()
+        ops0 = collection().dump()["ec.engine"]
+        with tally, KernelClock(dev) as clock:
+            t_data0 = time.monotonic()
+            # 1. every client writes its share to each EC pool at once
+            for pid in ec_pids:
+                keys = [k for k in specs if k[0] == pid]
+
+                def put(t, key):
+                    raw = cluster_object(specs[key])
+                    t0 = time.monotonic()
+                    clis[t].put(key[0], key[1], raw)
+                    return time.monotonic() - t0
+
+                t0 = time.perf_counter()
+                lat = _pmap(put, keys, clients)
+                wall = time.perf_counter() - t0
+                out[f"write_pool{pid}"] = {
+                    "writes": len(keys), "wall_s": wall,
+                    "writes_per_s": len(keys) / wall,
+                    "object_GB_per_s": len(keys) * size / wall / 1e9,
+                    **_ms_stats(lat)}
+                log(f"cluster: pool {pid} writes " + json.dumps(
+                    out[f"write_pool{pid}"]))
+
+            def read_all(label):
+                keys = sorted(specs)
+
+                def get(t, key):
+                    t0 = time.monotonic()
+                    got = clis[t].get(key[0], key[1])
+                    dt = time.monotonic() - t0
+                    if got != cluster_object(specs[key]):
+                        raise AssertionError(f"{label}: pool {key[0]} "
+                                             f"{key[1]} read back wrong")
+                    return dt
+
+                t0 = time.perf_counter()
+                lat = _pmap(get, keys, clients)
+                wall = time.perf_counter() - t0
+                rec = {"reads": len(keys), "wall_s": wall,
+                       "reads_per_s": len(keys) / wall, **_ms_stats(lat)}
+                log(f"cluster: {label} " + json.dumps(rec))
+                return rec
+
+            out["read"] = read_all("reads")
+            # 2. one read-modify-write a pool
+            off, ln = rmw
+            for pid in ec_pids:
+                key = (pid, rmw_oid)
+                new = ("rng", (13, pid, 9999), ln)
+                t0 = time.monotonic()
+                clis[0].write(pid, rmw_oid, off, cluster_object(new))
+                out[f"rmw_pool{pid}_ms"] = (time.monotonic() - t0) * 1e3
+                specs[key] = specs[key] + ((off, ln, (13, pid, 9999)),)
+                expect(key, specs[key])
+                if clis[0].get(pid, rmw_oid) != cluster_object(specs[key]):
+                    raise AssertionError(f"pool {pid}: the overwritten "
+                                         f"object reads back wrong")
+            # 3. an RBD-style image on the isa pool: 4 MiB objects
+            img = Image.create(clis[0], ec_pids[0], "img", image,
+                               stripe_unit=unit, stripe_count=1,
+                               object_size=unit)
+            data = cluster_object(("rng", img_seed, image))
+            t0 = time.monotonic()
+            img.write(0, data)
+            t1 = time.monotonic()
+            if img.read(0, image) != data:
+                raise AssertionError("the image reads back wrong")
+            t2 = time.monotonic()
+            out["image"] = {"write_s": t1 - t0, "read_s": t2 - t1,
+                            "write_MB_per_s": image / (t1 - t0) / 1e6,
+                            "read_MB_per_s": image / (t2 - t1) / 1e6}
+            log("cluster: image " + json.dumps(out["image"]))
+            for j in range(image // unit):
+                specs[(ec_pids[0], f"img.{j:016x}")] = (
+                    "slice", img_seed, image, j * unit, (j + 1) * unit)
+            specs[(ec_pids[0], "rbd_header.img")] = (
+                "bytes", encode_header(img._h))
+            for key, spec in specs.items():
+                if key not in digests:   # the image's objects
+                    expect(key, spec)
+            t_check = time.perf_counter()
+            # every shard of every object in place before the kills: a
+            # write is acked once k shards land (a sub-write can time
+            # out on a busy host), and recovery completes the rest
+            t0 = time.monotonic()
+            _wait_for(lambda: cluster_landed(cl, specs, profiles),
+                      "the writes' shards never all landed")
+            out["landed_wait_s"] = time.monotonic() - t0
+            expected = {key: (d.result() if hasattr(d, "result") else d)
+                        for key, d in digests.items()}
+            before = check_cluster_shards(cl, expected, "before the kills")
+            out["shards_checked_before"] = len(before)
+            out["check_before_s"] = time.perf_counter() - t_check
+
+            # 4. kill two OSDs that hold shards, degraded-read everything
+            m = _map_of(cl)
+            victims = []
+            for pid in ec_pids:
+                ps = object_to_ps(names[1]) % m.pools[pid].pg_num
+                up, _p, _a, _ap = m.pg_to_up_acting_osds(pid, ps)
+                victims += [o for o in up if o not in victims]
+            victims = victims[:2]
+            t_kill = time.monotonic()
+            # (the map still has them up: a read finds them gone and
+            # decodes from the others)
+            for n_kill, victim in enumerate(victims, 1):
+                cl.kill_osd(victim)
+                out[f"degraded_read_{n_kill}"] = read_all(
+                    f"degraded reads, {n_kill} OSD(s) down")
+            # 5. marked down, the monitor marks both out after
+            # mon_osd_down_out_interval; both come back empty (new
+            # disks: with 11 of 12 hosts in, CRUSH leaves a position of
+            # an 8+3 PG empty, so the pool would never be whole)
+            for victim in victims:
+                cl.mon_command({"type": "mark_down", "osd": victim})
+            _wait_for(lambda: all(_map_of(cl).osd_weight[v] == 0
+                                  for v in victims),
+                      "the monitor has not marked the OSDs out")
+            t_out = time.monotonic()
+            for v in victims:
+                cl.revive_osd(v)
+            for pid in [CLUSTER_REP] + ec_pids:
+                objs = {oid: 0 for p, oid in specs if p == pid}
+                cl.wait_for_recovery(pid, objs, timeout=CLUSTER_WAIT)
+            t_clean = time.monotonic()
+            data_wall = t_clean - t_data0
+            t0 = time.perf_counter()
+            after = check_cluster_shards(cl, expected, "after recovery")
+            # a shard is rebuilt where a holder has it now that did not
+            # before the kills, or that came back with an empty store
+            rebuilt = [(key, osd, n) for key, holders in after.items()
+                       for osd, n in holders.items()
+                       if osd in victims or osd not in before.get(key, {})]
+            rebuilt_bytes = sum(n for _k, _o, n in rebuilt)
+            out["recovery"] = {
+                "killed": victims, "revived_empty": victims,
+                "rebuilt_shards": len(rebuilt),
+                "rebuilt_MB": rebuilt_bytes / 1e6,
+                "from_kill_s": t_clean - t_kill,
+                "from_out_s": t_clean - t_out,
+                "MB_per_s_from_out": rebuilt_bytes / 1e6 / (t_clean - t_out)}
+            log("cluster: recovery " + json.dumps(out["recovery"]))
+            out["check_after_s"] = time.perf_counter() - t0
+            if not rebuilt:
+                raise AssertionError("recovery rebuilt no shard")
+            if launch_counts()[1]:
+                raise AssertionError("phase 13: K2 ran on the data path")
+            # 6. the mgr: one forced balancer round, held to
+            # calc_pg_upmaps, once every PG has settled (the commits of
+            # a busy cluster's monitors time out)
+            t0 = time.perf_counter()
+            _wait_for(lambda: cluster_settled(cl),
+                      "the PGs never settled after recovery")
+            out["settle_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out["balancer"], k2_bal = cluster_balancer(cl, conf, dev)
+            out["balancer"]["card"] = card
+            out["balancer"]["step_s"] = time.perf_counter() - t0
+            log("cluster: balancer " + json.dumps(out["balancer"]))
+            down = True
+            t0 = time.perf_counter()
+            cl.shutdown()
+            out["shutdown_s"] = time.perf_counter() - t0
+            # every launch of the run against the EC engine's calls, by
+            # route and kind, and K2's against the balancer's sweeps
+            ops1 = collection().dump()["ec.engine"]
+            k1, k2, k3 = launch_counts()
+            calls = {f"{r}_{k}": tally.get(r, k) for r in ("k1", "k3")
+                     for k in ("encode", "decode")}
+            booked = (ops1["encode_ops"] - ops0["encode_ops"]
+                      + ops1["decode_ops"] - ops0["decode_ops"])
+            if (k1 != calls["k1_encode"] + calls["k1_decode"]
+                    or k3 != calls["k3_encode"] + calls["k3_decode"]
+                    or k1 + k3 != booked or k2 != k2_bal
+                    or min(calls.values()) < 1):
+                raise AssertionError(f"phase 13: launches (K1, K2, K3) "
+                                     f"{(k1, k2, k3)}, engine calls "
+                                     f"{calls}, booked {booked}, balancer "
+                                     f"K2 {k2_bal}")
+            out["launches"] = {"k1": k1, "k3": k3, **calls}
+            # the kernels' device time with the cluster stopped: no
+            # other thread may touch the card while the graph captures
+            t0 = time.perf_counter()
+            kernel_ms = clock.ms()
+            out["replay_s"] = time.perf_counter() - t0
+            if launch_counts() != (k1, k2, k3):
+                raise AssertionError("phase 13: the graph replay counted "
+                                     "launches")
+    finally:
+        if not down:
+            cl.shutdown()
+    segs, spans = wire_quiesced()
+    if segs:
+        raise AssertionError(f"phase 13: receive segments still held: "
+                             f"{segs[:4]}")
+    if spans:
+        raise AssertionError(f"phase 13: spans left open: "
+                             f"{[s.name for _, s in spans][:4]}")
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    out["kernel_ms"] = kernel_ms
+    out["data_wall_s"] = data_wall
+    out["kernel_share"] = kernel_ms / 1e3 / data_wall
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, (k1, k2, k3)
+
+
+def cluster_balancer(cl, conf, dev):
+    """Step 6 of phase 13: start the mgr, force one balancer round and
+    hold its proposal to the offline ``calc_pg_upmaps`` on the same map
+    (same options, same seed); wait until the monitor has committed
+    it (a round whose commit the monitor aborted is followed by
+    another, at most ``CLUSTER_ROUNDS``).  Returns (record, K2
+    launches), each round's launches asserted equal to its ``map_all``
+    calls."""
+    from ceph_tpu_torch.crush.wrapper import CrushWrapper
+    from ceph_tpu_torch.mgr.balancer_module import diff_upmap_items
+    from ceph_tpu_torch.osdmap.balancer import calc_pg_upmaps
+    from ceph_tpu_torch.osdmap.osdmap import OSDMap
+    from ceph_tpu_torch.osdmap.pipeline import PoolMapper
+
+    mgr = cl.start_mgr()
+    bal = mgr.modules["balancer"]
+    _wait_for(lambda: mgr.epoch >= _map_of(cl).epoch,
+              "the mgr has not caught up with the monitor")
+    maps, sent = [], []
+    real_map_all = PoolMapper.map_all
+    real_mon_call = mgr.mon_call
+
+    def map_all(self, *a, **kw):
+        maps.append(self.pool_id)
+        return real_map_all(self, *a, **kw)
+
+    def mon_call(msg, *a, **kw):
+        rep = real_mon_call(msg, *a, **kw)
+        if msg.get("type") == "pg_upmap_items_set":
+            sent.append(((msg["pool"], msg["ps"]), msg["items"], rep))
+        return rep
+
+    k2_total = rounds = proposed = 0
+    for _attempt in range(CLUSTER_ROUNDS):
+        m0, _w0, epoch = bal._snapshot()
+        rounds0 = bal.rounds
+        maps.clear()
+        sent.clear()
+        k2_before = launch_counts()[1]
+        PoolMapper.map_all = map_all
+        mgr.mon_call = mon_call
+        try:
+            t0 = time.perf_counter()
+            rec = bal.command({"argv": ["execute"]})
+            round_s = time.perf_counter() - t0
+        finally:
+            PoolMapper.map_all = real_map_all
+            del mgr.mon_call
+        k2_round = launch_counts()[1] - k2_before
+        if k2_round != len(maps) or k2_round < 1:
+            raise AssertionError(f"phase 13: {len(maps)} map_all calls of "
+                                 f"the balancer launched K2 {k2_round} "
+                                 f"times")
+        k2_total += k2_round
+        rounds += 1
+        if rec.get("epoch") != epoch:
+            continue   # the round swept a newer map than the snapshot
+        old = {pg: list(v) for pg, v in m0.pg_upmap_items.items()}
+        m_off = OSDMap.from_dict(m0.to_dict())
+        counts = launch_counts()   # the offline run's launches do not count
+        calc_pg_upmaps(m_off, max_deviation=int(conf[
+            "balancer_max_deviation"]), max_iterations=int(conf[
+            "balancer_max_iterations"]), wrapper=CrushWrapper(m_off.crush),
+            use_batched=True, seed=rounds0 + 1, device=dev)
+        set_launch_counts(counts)
+        want = diff_upmap_items(old, m_off.pg_upmap_items)
+        got = [(pg, [list(p) for p in items]) for pg, items, _r in sent]
+        if got != [(pg, [list(p) for p in items]) for pg, items in want]:
+            raise AssertionError(f"phase 13: the balancer proposed {got}, "
+                                 f"offline calc_pg_upmaps {want}: {rec}")
+        proposed += len(want)
+        refused = [(pg, r) for pg, _i, r in sent if "error" in r]
+        if not refused:
+            break
+        # a commit the monitor aborted (its quorum lapsed under load):
+        # the next round starts from what it did commit
+        log(f"cluster: the monitor refused balancer proposals {refused}; "
+            f"another round")
+    else:
+        raise AssertionError(f"phase 13: no balancer round of "
+                             f"{CLUSTER_ROUNDS} was committed whole")
+    if not proposed:
+        raise AssertionError(f"phase 13: the balancer proposed nothing: "
+                             f"{rec}")
+    target = {pg: [list(p) for p in v]
+              for pg, v in m_off.pg_upmap_items.items()}
+    _wait_for(lambda: {pg: [list(p) for p in v] for pg, v in
+                       _map_of(cl).pg_upmap_items.items()} == target,
+              "the monitor has not committed the balancer's upmaps")
+    return {"round_s": round_s, "rounds": rounds, "proposed": proposed,
+            "k2_launches": k2_total, "map_all_calls_last_round": len(maps),
+            "stddev_before": rec.get("stddev_before"),
+            "stddev_after": rec.get("stddev_after")}, k2_total
+
+
 def main():
     import tempfile
 
@@ -4115,6 +4766,15 @@ def main():
         wire["launches"] = {"k1": wire_k1, "k3": wire_k3}
         k1["launches"] += wire_k1
         k3["launches"] += wire_k3
+
+        # a live cluster: every count at 0 before it, K1's and K3's
+        # launches asserted against the EC engine's calls, K2's against
+        # the balancer's map_all calls
+        set_launch_counts((0, 0, 0))
+        cluster, (cl_k1, cl_k2, cl_k3) = phase_cluster(dev, card, pool)
+        cluster["launches"].update(k2=cl_k2)
+        for k, n in zip((k1, k2, k3), (cl_k1, cl_k2, cl_k3)):
+            k["launches"] += n
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
     for k in (k1, k2, k3):
@@ -4148,6 +4808,7 @@ def main():
     log("epochs_phase: " + json.dumps({"card": card, **epochs}))
     log("wire_phase: " + json.dumps(
         {key: wire[key] for key in ("card", "phase_s", "launches", "asok")}))
+    log("cluster_phase: " + json.dumps(cluster))
     log(f"gpu: {card}")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

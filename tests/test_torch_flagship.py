@@ -155,7 +155,12 @@ def test_port_never_imports_jax_or_the_jax_package(tmp_path):
                  "analysis.asyncheck", "common.admin_socket",
                  "common.metrics_history", "common.profiler",
                  "common.context", "common.op_tracker", "common.op_queue",
-                 "common.bufpool", "msg.auth", "msg.messenger"):
+                 "common.bufpool", "msg.auth", "msg.messenger",
+                 "services.recovery", "services.quorum",
+                 "services.heartbeat", "services.map_follower",
+                 "services.monitor", "services.osd_service",
+                 "services.client", "services.cluster",
+                 "services.striper", "services.image", "mgr.daemon"):
         assert "ceph_tpu_torch." + name in modules
 
 

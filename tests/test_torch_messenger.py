@@ -322,6 +322,21 @@ DIRECTIONS = [("port", "ceph_tpu"), ("ceph_tpu", "port"), ("port", "port")]
 
 
 @pytest.mark.parametrize("lossless", [True, False])
+def test_dialed_connection_waits_for_a_slow_reply(links, lossless):
+    """A fault of ``ceph_tpu`` that the port does not copy: its
+    ``_connect`` leaves ``create_connection``'s 5 s dial timeout on the
+    socket, so the connection's reader gives up after 5 s without a
+    frame and every call waiting on it fails with "connection lost",
+    whatever its own timeout (a busy cluster's EC writes failed so).
+    The port dials with the bound and then reads without one."""
+    servers, clients = links
+    for pkg, want in (("ceph_tpu", 5.0), ("port", None)):
+        cli = clients[(pkg, lossless)]
+        for srv in servers.values():
+            assert cli._conns[tuple(srv.m.addr)].gettimeout() == want
+
+
+@pytest.mark.parametrize("lossless", [True, False])
 @pytest.mark.parametrize("client,server", DIRECTIONS)
 def test_live_exchange(links, client, server, lossless):
     servers, clients = links
