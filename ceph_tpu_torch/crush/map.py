@@ -12,6 +12,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
+from ..common import encoding
 from . import constants as C
 
 
@@ -163,6 +164,13 @@ class ChooseArgMap(dict):
 class CrushMap:
     """The host-side crush map."""
 
+    # wire/disk JSON form version (wirecheck entry crush.map_json):
+    # to_json wraps the dict in the versioned envelope; from_json also
+    # accepts the pre-envelope raw dict (writer v0) so archived maps
+    # keep decoding
+    STRUCT_V = 1
+    COMPAT_V = 1
+
     def __init__(self, tunables: Optional[Tunables] = None):
         self.buckets: Dict[int, Bucket] = {}  # keyed by bucket index (-1-id)
         self.rules: Dict[int, Rule] = {}
@@ -263,3 +271,17 @@ class CrushMap:
                     key = int(key)
                 m.choose_args[key] = cam
         return m
+
+    def to_json(self) -> str:
+        return encoding.encode(self.to_dict(), self.STRUCT_V,
+                               self.COMPAT_V)
+
+    @classmethod
+    def from_json(cls, s: str) -> "CrushMap":
+        v, d = encoding.decode_any(s, supported=cls.STRUCT_V,
+                                   struct="crush.map_json")
+        try:
+            return cls.from_dict(d)
+        except (KeyError, TypeError, ValueError, AttributeError) as e:
+            raise encoding.MalformedInput(
+                f"crush.map_json v{v}: bad payload: {e!r}")

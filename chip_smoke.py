@@ -204,6 +204,29 @@ Phases (any failure raises and the script exits non-zero):
    It prints writes/s, GB/s and write latencies, degraded-read and
    recovery times, the balancer round's seconds and the kernels' share
    of the data path's wall time (a CUDA graph of the run's launches).
+14. The cluster tools.  (a) Before phase 13, ``rados_bench``'s CLI in
+   this process with its own cluster (4 OSDs, pg_num 16, jerasure
+   reed_sol_van 2+1 on K1 on the card) at upstream ``rados bench``'s 4
+   MiB objects and 16 ops in flight, 10 s a run (upstream: 60):
+   ``seq`` (16 writer threads, then 16 readers) and ``write`` through
+   the aio window at queue depth 16, every count at 0 before each.  No
+   op class has an error, the copy ledger's engine is ``bitplane``, K1's
+   launches equal the EC engine's booked calls and every 8th launch
+   equals the plain version byte for byte (``SampledTap``; not
+   counted); each record prints on a ``rados_bench:`` line.  (b) On
+   phase 13's cluster once its balancer round is committed (a hook of
+   ``phase_cluster``, before the shutdown), with every count at 0
+   (phase 13's put back after): ``ObjBencher`` write then seq, 10 s
+   each, 4 MiB objects, 16 in flight, on the isa 8+3 (K1) and
+   cauchy_good 4+2 (K3) pools; ``rados`` put/get/stat/ls/df of a 4 MiB
+   object on the card; ``ceph_cli`` status, health, df, osd tree, pool
+   ls, balancer status and dencoder list; ``telemetry`` snapshot, prom
+   (held to the Prometheus text grammar) and latency.  Every bench
+   object reads back equal to its bytes, every shard in every store
+   equals the CPU encode (phase 13's objects too), K1's and K3's
+   launches equal the EC engine's calls by route; each pool's writes
+   fold into stages (``common/attribution.py``) with at most 10%
+   unattributed, printed on a ``cluster_stages:`` line.
 
 The scalar oracles run in worker processes (spawned, stopped at the
 end) beside the card's work.
@@ -216,17 +239,19 @@ operations over its peak rate for their type (published H100 SXM
 figures; K1's 1-bit products are counted at the int8 rate, which is
 lower).  It prints
 the card's name and power limit, one line per kernel, one ``kernels``
-JSON line (K1's launches: phases 4, 8, 9, 10, 12 and 13; K2's: phase
+JSON line (K1's launches: phases 4, 8, 9, 10, 12, 13 and 14; K2's: phase
 4's, one a ``map_all`` call in phases 5, 6, 11 and 13, one a sweep in
 phase 7, one a rule in phase 8, phase 9's cross-check and one a shard
-in phase 10; K3's: phases 9, 10, 12 and 13), K2's variants, the
+in phase 10; K3's: phases 9, 10, 12, 13 and 14), K2's variants, the
 flagship rates, the pipeline's rates, the balancer's records and time
 split, crushtool's record, one ``ec_plugins`` line per profile and
 workload, phase 9's ``layouts``, ``k3``, ``words`` and ``spec`` lines,
 phase 10's ``mesh`` lines, phase 11's ``epoch`` lines and its
 ``epochs_phase`` record, phase 12's ``wire`` lines and its
 ``wire_phase`` record, phase 13's ``cluster`` lines and its
-``cluster_phase`` record, and last the contract line
+``cluster_phase`` record, phase 14's ``rados_bench`` and
+``cluster_stages`` lines and its ``tools_phase`` record, and last the
+contract line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the rest of the repository beside it, it exits non-zero and prints no
 result.
@@ -2673,6 +2698,19 @@ def set_launch_counts(counts):
      gf2_packet.gf2_packet.launches) = counts
 
 
+def swap_launch_counts(counts):
+    """Set the (K1, K2, K3) launch counts to ``counts`` and return what
+    they were, in one step under the lock K1's and K3's wrappers count
+    under (daemon threads launch meanwhile; K2's launches come from the
+    caller's thread)."""
+    from ceph_tpu_torch.ec import gf2_kernels
+
+    with gf2_kernels.COUNT_LOCK:
+        old = launch_counts()
+        set_launch_counts(counts)
+    return old
+
+
 def counted(fn, want, label):
     """``fn()``, asserting the (K1, K2, K3) launches it made."""
     before = launch_counts()
@@ -3639,6 +3677,7 @@ class KernelClock:
         self.dev = dev
         self.calls = []
         self.host_s = 0.0
+        self.recording = True   # False: calls pass through unrecorded
         self._lock = threading.Lock()   # daemon threads launch at once
 
     def _wrap(self, real):
@@ -3647,8 +3686,9 @@ class KernelClock:
             out = real(*args, **kw)
             dt = time.perf_counter() - t
             with self._lock:
-                self.host_s += dt
-                self.calls.append((real, args, kw))
+                if self.recording:
+                    self.host_s += dt
+                    self.calls.append((real, args, kw))
             return out
 
         tap.launches = 0
@@ -4254,7 +4294,7 @@ def _ms_stats(xs):
 def phase_cluster(dev, card, pool=None, osds=CLUSTER_OSDS, mons=CLUSTER_MONS,
                   pg_num=CLUSTER_PG_NUM, clients=CLUSTER_CLIENTS,
                   objects=CLUSTER_OBJECTS, size=CLUSTER_OBJECT,
-                  image=CLUSTER_IMAGE, rmw=CLUSTER_RMW):
+                  image=CLUSTER_IMAGE, rmw=CLUSTER_RMW, tools=None):
     """Phase 13: a live ``MiniCluster`` on ``dev``.
 
     ``mons`` monitors, ``osds`` OSDs on as many hosts, a replicated pool
@@ -4275,8 +4315,15 @@ def phase_cluster(dev, card, pool=None, osds=CLUSTER_OSDS, mons=CLUSTER_MONS,
     before the kills and after recovery, to the same profile's encode on
     the CPU (sha256 of each chunk, computed in ``pool``'s workers when
     given); K1's and K3's launches to the EC engine's calls by route and
-    kind, and K2's to the balancer's ``map_all`` calls.  Returns (report,
-    (K1, K2, K3) launches)."""
+    kind, and K2's to the balancer's ``map_all`` calls.
+
+    ``tools(cl, clis, profiles, expected)``, when given, runs once the
+    balancer's round is committed, before the shutdown (phase 14 (b) on
+    this cluster: no second cluster is booted); its calls are left out
+    of the kernels' device time, its record goes under ``"tools"`` and
+    the launches it counted there (``"launches"``) are left out of this
+    phase's ``launches`` record.  Returns (report, (K1, K2, K3)
+    launches of this phase and ``tools``)."""
     import torch
 
     from ceph_tpu_torch.common.config import Config
@@ -4294,6 +4341,10 @@ def phase_cluster(dev, card, pool=None, osds=CLUSTER_OSDS, mons=CLUSTER_MONS,
     # before the degraded reads are done
     conf.set("osd_heartbeat_interval", 5.0)
     conf.set("osd_heartbeat_grace", 600.0)
+    # and their RTT warning (OSD_SLOW_PING_TIME) as wide: one process's
+    # 12 OSDs answer pings in 2-3 s after the writes, and phase 14's
+    # `ceph_cli health` must find the cluster HEALTH_OK
+    conf.set("osd_heartbeat_ping_threshold_ms", 30000.0)
     # and the monitors' leases are long: a busy host must not send the
     # quorum into elections (no monitor is killed here)
     conf.set("mon_lease", 3.0)
@@ -4310,6 +4361,9 @@ def phase_cluster(dev, card, pool=None, osds=CLUSTER_OSDS, mons=CLUSTER_MONS,
     # high_recovery_ops profile lifts it)
     conf.set("osd_max_backfills", 4)
     conf.set("balancer_max_deviation", 1)
+    # spans an OSD keeps (the default is 512): phase 14 folds the traces
+    # of a 10 s write burst to 12 OSDs
+    conf.set("trace_ring_size", 8192)
     cl = MiniCluster(n_osds=osds, config=conf, n_mons=mons,
                      device=dev).start()
     out = {"card": card, "osds": osds, "mons": mons, "pg_num": pg_num,
@@ -4510,6 +4564,10 @@ def phase_cluster(dev, card, pool=None, osds=CLUSTER_OSDS, mons=CLUSTER_MONS,
             out["balancer"]["card"] = card
             out["balancer"]["step_s"] = time.perf_counter() - t0
             log("cluster: balancer " + json.dumps(out["balancer"]))
+            if tools is not None:
+                clock.recording = False
+                out["tools"] = tools(cl, clis, profiles, expected)
+                clock.recording = True
             down = True
             t0 = time.perf_counter()
             cl.shutdown()
@@ -4530,7 +4588,9 @@ def phase_cluster(dev, card, pool=None, osds=CLUSTER_OSDS, mons=CLUSTER_MONS,
                                      f"{(k1, k2, k3)}, engine calls "
                                      f"{calls}, booked {booked}, balancer "
                                      f"K2 {k2_bal}")
-            out["launches"] = {"k1": k1, "k3": k3, **calls}
+            theirs = out.get("tools", {}).get("launches", {})
+            out["launches"] = {key: n - theirs.get(key, 0) for key, n in
+                               {"k1": k1, "k3": k3, **calls}.items()}
             # the kernels' device time with the cluster stopped: no
             # other thread may touch the card while the graph captures
             t0 = time.perf_counter()
@@ -4558,6 +4618,35 @@ def phase_cluster(dev, card, pool=None, osds=CLUSTER_OSDS, mons=CLUSTER_MONS,
     return out, (k1, k2, k3)
 
 
+def _committed_on_a_monitor(cl, target, only=None):
+    """True when some monitor's committed pg_upmap_items equal
+    ``target`` (on the PGs of ``only`` when given: a PG missing from
+    ``target`` must have no entry).  Each monitor is asked on its own:
+    the first to answer may be one that lost quorum in an earlier round
+    and has not caught up with the quorum's commits."""
+    from ceph_tpu_torch.osdmap.bincode_maps import payload_map
+    from ceph_tpu_torch.services.map_follower import failover_call
+
+    for mon in list(cl.mons.values()):
+        try:
+            rep, _ = failover_call(mon.msgr, [mon.addr], {"type": "get_map"},
+                                   timeout=5.0, tries=1)
+        except (OSError, TimeoutError, RuntimeError):
+            continue
+        if "error" in rep:
+            continue
+        got = {pg: [list(p) for p in v]
+               for pg, v in payload_map(rep).pg_upmap_items.items()}
+        if only is not None:
+            got = {pg: v for pg, v in got.items() if pg in only}
+            want = {pg: v for pg, v in target.items() if pg in only}
+        else:
+            want = target
+        if got == want:
+            return True
+    return False
+
+
 def cluster_balancer(cl, conf, dev):
     """Step 6 of phase 13: start the mgr, force one balancer round and
     hold its proposal to the offline ``calc_pg_upmaps`` on the same map
@@ -4566,6 +4655,7 @@ def cluster_balancer(cl, conf, dev):
     another, at most ``CLUSTER_ROUNDS``).  Returns (record, K2
     launches), each round's launches asserted equal to its ``map_all``
     calls."""
+    from ceph_tpu_torch.crush import mapper
     from ceph_tpu_torch.crush.wrapper import CrushWrapper
     from ceph_tpu_torch.mgr.balancer_module import diff_upmap_items
     from ceph_tpu_torch.osdmap.balancer import calc_pg_upmaps
@@ -4617,12 +4707,15 @@ def cluster_balancer(cl, conf, dev):
             continue   # the round swept a newer map than the snapshot
         old = {pg: list(v) for pg, v in m0.pg_upmap_items.items()}
         m_off = OSDMap.from_dict(m0.to_dict())
-        counts = launch_counts()   # the offline run's launches do not count
+        # the offline run's K2 launches do not count; K2's count alone
+        # goes back (recovery after an earlier round's commit launches
+        # K1 and K3 meanwhile)
+        k2_offline = mapper.crush_rule_batched.launches
         calc_pg_upmaps(m_off, max_deviation=int(conf[
             "balancer_max_deviation"]), max_iterations=int(conf[
             "balancer_max_iterations"]), wrapper=CrushWrapper(m_off.crush),
             use_batched=True, seed=rounds0 + 1, device=dev)
-        set_launch_counts(counts)
+        mapper.crush_rule_batched.launches = k2_offline
         want = diff_upmap_items(old, m_off.pg_upmap_items)
         got = [(pg, [list(p) for p in items]) for pg, items, _r in sent]
         if got != [(pg, [list(p) for p in items]) for pg, items in want]:
@@ -4644,13 +4737,405 @@ def cluster_balancer(cl, conf, dev):
                              f"{rec}")
     target = {pg: [list(p) for p in v]
               for pg, v in m_off.pg_upmap_items.items()}
-    _wait_for(lambda: {pg: [list(p) for p in v] for pg, v in
-                       _map_of(cl).pg_upmap_items.items()} == target,
+    # after a refused round a new leader may still commit a refused
+    # proposal it finds accepted (the Paxos re-propose), so the map is
+    # held to the last round's proposals there, and whole otherwise
+    only = {pg for pg, _items in want} if rounds > 1 else None
+    _wait_for(lambda: _committed_on_a_monitor(cl, target, only),
               "the monitor has not committed the balancer's upmaps")
     return {"round_s": round_s, "rounds": rounds, "proposed": proposed,
             "k2_launches": k2_total, "map_all_calls_last_round": len(maps),
             "stddev_before": rec.get("stddev_before"),
             "stddev_after": rec.get("stddev_after")}, k2_total
+
+
+# -- phase 14: the cluster tools -----------------------------------------
+BENCH_OBJECT = 4 << 20    # upstream `rados bench`'s object size (-b)
+BENCH_OPS = 16            # and its ops in flight (-t)
+BENCH_SECONDS = 10        # upstream's duration is 60 s
+TOOLS_SECONDS = 10        # ObjBencher's write and seq on phase 13's cluster
+TAP_EVERY = 8             # every 8th K1 launch held to the plain version
+TOOLS_UNATTRIBUTED = 0.10  # the most of a write's time no stage may name
+
+_PROM_METRIC = r"[a-zA-Z_:][a-zA-Z0-9_:]*"
+_PROM_LABELS = (r"\{[a-zA-Z_][a-zA-Z0-9_]*="
+                r'"(?:[^"\\\n]|\\\\|\\"|\\n)*"'
+                r"(?:,[a-zA-Z_][a-zA-Z0-9_]*="
+                r'"(?:[^"\\\n]|\\\\|\\"|\\n)*")*\}')
+_PROM_SAMPLE = (rf"^{_PROM_METRIC}(?:{_PROM_LABELS})? "
+                r"[-+]?(?:[0-9.eE+-]+|Inf|NaN)$")
+
+
+def check_exposition(text):
+    """The Prometheus text exposition grammar ``ceph_tpu``'s telemetry
+    tests hold its output to: one HELP and one TYPE line a family, before
+    its samples; well-formed samples with escaped label values.  Returns
+    the number of samples."""
+    import re
+
+    seen = {"HELP": set(), "TYPE": set()}
+    samples = 0
+    if not text.endswith("\n"):
+        raise AssertionError("prom: the exposition does not end a line")
+    for line in text.splitlines():
+        m = re.match(rf"^# (HELP|TYPE) ({_PROM_METRIC})(?: (.*))?$", line)
+        if m:
+            if m.group(2) in seen[m.group(1)]:
+                raise AssertionError(f"prom: a second # {m.group(1)} for "
+                                     f"{m.group(2)}")
+            seen[m.group(1)].add(m.group(2))
+            if m.group(1) == "TYPE" and m.group(3) not in (
+                    "counter", "gauge", "histogram", "summary", "untyped"):
+                raise AssertionError(f"prom: bad type {line!r}")
+            continue
+        if not re.match(_PROM_SAMPLE, line):
+            raise AssertionError(f"prom: bad sample {line!r}")
+        name = re.match(_PROM_METRIC, line).group(0)
+        if name not in seen["TYPE"] and \
+                re.sub(r"_(bucket|sum|count)$", "", name) not in seen["TYPE"]:
+            raise AssertionError(f"prom: sample {name} has no # TYPE")
+        samples += 1
+    if seen["HELP"] != seen["TYPE"]:
+        raise AssertionError("prom: HELP and TYPE families differ")
+    return samples
+
+
+class SampledTap:
+    """Replaces ``gf2_kernels.gf2_matmul_w8`` while open: every
+    ``every``-th call (the first included) has its product held byte for
+    byte to the plain version on the same inputs, on the same device.  A
+    wrapper counts its launches on the name its module holds, the tap's
+    while open; they go to the real wrapper's count on close, and the
+    plain version counts none.  Daemon threads call at once, so a
+    mismatch is recorded (``bad``), not raised in the caller's thread."""
+
+    def __init__(self, every=TAP_EVERY):
+        import threading
+
+        self.every, self.calls, self.checked, self.bad = every, 0, 0, []
+        self._lock = threading.Lock()
+
+    def __enter__(self):
+        import torch
+
+        from ceph_tpu_torch.ec import gf2_kernels
+
+        self.mod, self.real = gf2_kernels, gf2_kernels.gf2_matmul_w8
+        real, plain = self.real, gf2_kernels.gf2_matmul_w8_plain
+
+        def tap(bm, data, fragments=None):
+            out = real(bm, data, fragments)
+            with self._lock:
+                i = self.calls
+                self.calls += 1
+            if i % self.every == 0:
+                rows = torch.stack(list(data)) \
+                    if isinstance(data, (list, tuple)) else data
+                same = torch.equal(out, plain(bm, rows))
+                with self._lock:
+                    self.checked += 1
+                    if not same:
+                        self.bad.append(tuple(bm.shape) + tuple(rows.shape))
+            return out
+
+        tap.launches = 0
+        self.tap = tap
+        self.mod.gf2_matmul_w8 = tap
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.gf2_matmul_w8 = self.real
+        self.real.launches += self.tap.launches
+        return False
+
+
+def _engine_ops():
+    """The EC engine's booked encode and decode calls so far."""
+    from ceph_tpu_torch.common.perf_counters import collection
+    from ceph_tpu_torch.ec import engine  # noqa: F401  (its logger)
+
+    d = collection().dump()["ec.engine"]
+    return d["encode_ops"] + d["decode_ops"]
+
+
+def _cli(main, argv):
+    """``main(argv)`` in this process, its standard output captured:
+    (exit code, output)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, buf.getvalue()
+
+
+def phase_rados_bench(dev, card, size=BENCH_OBJECT, ops=BENCH_OPS,
+                      seconds=BENCH_SECONDS, device="cuda"):
+    """Phase 14 (a): ``rados_bench``'s CLI in this process, with its own
+    cluster defaults (4 OSDs, pg_num 16, the EC pool jerasure
+    reed_sol_van 2+1), at upstream's 4 MiB objects and 16 ops in flight:
+    ``seq`` (16 writer threads, then 16 readers) and ``write`` through the
+    aio window at queue depth 16.  Each run: no op class has an error,
+    the copy ledger's engine is ``bitplane`` (K1), K1's launches equal
+    the EC engine's booked calls (all on K1's route) and every
+    ``TAP_EVERY``-th launch equals the plain version.  Returns (records,
+    K1 launches)."""
+    from ceph_tpu_torch.tools import rados_bench
+
+    t_phase = time.perf_counter()
+    runs = {
+        "seq": ["seq", "--ec", "--object-size", str(size), "--concurrent",
+                str(ops), "--seconds", str(seconds), "--device", device],
+        "write": ["write", "--ec", "--object-size", str(size), "--qd",
+                  str(ops), "--seconds", str(seconds), "--device", device],
+    }
+    out = {"card": card}
+    k1_total = 0
+    for label, argv in runs.items():
+        set_launch_counts((0, 0, 0))
+        ops0 = _engine_ops()
+        t0 = time.perf_counter()
+        with EngineTally() as tally, SampledTap() as tap:
+            rc, text = _cli(rados_bench.main, argv)
+        wall = time.perf_counter() - t0
+        k1, k2, k3 = launch_counts()
+        booked = _engine_ops() - ops0
+        if rc != 0:
+            raise AssertionError(f"phase 14: rados_bench {label} exit {rc}")
+        rec = json.loads(text.strip().splitlines()[-1])
+        classes = [c for c in ("write", "seq") if c in rec]
+        errors = {c: rec[c]["errors"] for c in classes}
+        calls = tally.get("k1", "encode") + tally.get("k1", "decode")
+        if any(errors.values()) or not classes:
+            raise AssertionError(f"phase 14: rados_bench {label} errors "
+                                 f"{errors}")
+        if rec["copy"]["engine"] != "bitplane":
+            raise AssertionError(f"phase 14: rados_bench {label} ran on "
+                                 f"{rec['copy']['engine']}")
+        if (k1 < 1 or k1 != booked or k1 != calls or k1 != tap.calls
+                or (k2, k3) != (0, 0)):
+            raise AssertionError(f"phase 14: rados_bench {label} launches "
+                                 f"(K1, K2, K3) {(k1, k2, k3)}, engine "
+                                 f"calls {calls}, booked {booked}, tapped "
+                                 f"{tap.calls}")
+        if tap.bad or tap.checked < 1:
+            raise AssertionError(f"phase 14: K1 differs from its plain "
+                                 f"version on {tap.bad[:4]} (checked "
+                                 f"{tap.checked})")
+        rec.update(argv=argv, wall_s=wall, k1_launches=k1,
+                   k1_checked=tap.checked, card=card)
+        log("rados_bench: " + json.dumps(rec))
+        out[label] = rec
+        k1_total += k1
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, k1_total
+
+
+def _pool_traces(snap, pool_id, root="client.put"):
+    """The snapshot cut to the traces whose root is ``root`` on
+    ``pool_id`` (the client tags its root span with the pool)."""
+    from ceph_tpu_torch.tools import telemetry
+
+    tids = {s["trace_id"] for s in telemetry.gather_spans(snap)
+            if not s.get("parent_id") and s.get("name") == root
+            and (s.get("tags") or {}).get("pool") == pool_id}
+    daemons = {}
+    for name, data in snap["daemons"].items():
+        tr = data.get("tracing") or {}
+        daemons[name] = {"tracing": {
+            "spans": [s for s in tr.get("spans", [])
+                      if s.get("trace_id") in tids],
+            "active": []}}
+    return {"ts": snap["ts"], "daemons": daemons, "unreachable": []}
+
+
+def stage_split(report):
+    """A ``latency_report`` reduced to the ``cluster_stages:`` line's
+    fields; fails if ``unattributed`` holds over ``TOOLS_UNATTRIBUTED`` of
+    the folded time (the port's span names no longer fold)."""
+    total = sum(r["total_s"] for r in report["stages"].values())
+    un = report["stages"]["unattributed"]["total_s"] / total if total else 0.0
+    if report["n_ops"] < 1 or un > TOOLS_UNATTRIBUTED:
+        raise AssertionError(f"phase 14: {report['n_ops']} folded writes, "
+                             f"unattributed {un:.1%}")
+    return {"n_ops": report["n_ops"],
+            "op_p50_ms": report["total"]["p50_ms"],
+            "op_p99_ms": report["total"]["p99_ms"],
+            "unattributed_share": un,
+            "stages": {s: {k: r[k] for k in ("share", "p50_ms", "p99_ms",
+                                             "count")}
+                       for s, r in report["stages"].items()}}
+
+
+def phase_tools(cl, clis, profiles, expected, pool, card, device="cuda",
+                seconds=TOOLS_SECONDS, size=BENCH_OBJECT, ops=BENCH_OPS):
+    """Phase 14 (b), on phase 13's live cluster once its balancer round is
+    committed.  With every launch count at 0 (phase 13's are put back
+    after, this phase's added): ``ObjBencher`` write then seq for
+    ``seconds`` on each EC pool (isa 8+3 on K1, cauchy_good 4+2 on K3),
+    ``size`` objects, ``ops`` in flight, the write's traces folded into
+    stages by ``telemetry.latency_report``; ``rados`` put/get/stat/ls/df
+    of one object on the isa pool; ``ceph_cli`` status, health, df, osd
+    tree, pool ls, balancer status, dencoder list; ``telemetry``
+    snapshot, prom and latency.  Every bench object reads back equal to
+    its bytes; every shard in every store equals the CPU encode (phase
+    13's objects too); K1's and K3's launches equal the EC engine's
+    calls by route.  ``expected`` (phase 13's digests) gains this
+    phase's objects.  Returns the record, its launches under
+    ``"launches"``."""
+    import tempfile
+
+    from ceph_tpu_torch.ec import gf2_kernels
+    from ceph_tpu_torch.tools import ceph_cli, rados, rados_bench, telemetry
+
+    t_phase = time.perf_counter()
+    out = {"card": card, "seconds": seconds, "object_bytes": size,
+           "ops_in_flight": ops}
+    # the balancer's upmaps move EC positions: reads wait for them
+    t0 = time.perf_counter()
+    cl.wait_for_health_ok(timeout=CLUSTER_WAIT)
+    _wait_for(lambda: cluster_settled(cl),
+              "the PGs never settled after the balancer")
+    out["settle_s"] = time.perf_counter() - t0
+    ec_pids = [pid for pid, *_ in CLUSTER_EC]
+    blob = bytes((i * 131 + 17) & 0xFF for i in range(size))
+    spec = ("rng", (14, ec_pids[0], 0), size)
+    # the CPU's chunks, in the workers (or here, before the counts
+    # start: a CPU encode books an engine call and launches nothing)
+    jobs = {pid: (profiles[pid], ("bytes", blob)) for pid in ec_pids}
+    jobs["rados14"] = (profiles[ec_pids[0]], spec)
+    digests = {key: (pool.submit(cluster_digests, *job) if pool is not None
+                     else cluster_digests(*job))
+               for key, job in jobs.items()}
+    saved = swap_launch_counts((0, 0, 0))
+    ops0 = _engine_ops()
+    mon = "%s:%d" % tuple(cl.mon_addrs[0])
+    quorum = ",".join("%s:%d" % tuple(a) for a in cl.mon_addrs)
+    stages = {}
+    with EngineTally() as tally:
+        cli = cl.client("bench14")
+        written = {}
+        for pid in ec_pids:
+            b = rados_bench.ObjBencher(cli, pid, object_size=size,
+                                       concurrent=ops, prefix=f"bench14_{pid}")
+            w = b.write(seconds).summary()
+            snap = telemetry.cluster_snapshot(cl.asok_dir)
+            rep = telemetry.latency_report(_pool_traces(snap, pid),
+                                           root_prefix="client.put")
+            stages[pid] = stage_split(rep)
+            r = b.seq(seconds).summary()
+            if w["errors"] or r["errors"] or not w["ops"] or not r["ops"]:
+                raise AssertionError(f"phase 14: pool {pid} ObjBencher "
+                                     f"write {w}, seq {r}")
+            written[pid] = b.written
+            out[f"objbench_pool{pid}"] = {"write": w, "seq": r}
+            log(f"tools: pool {pid} ObjBencher " + json.dumps(
+                out[f"objbench_pool{pid}"]))
+        # rados: one object through the CLI on the isa pool
+        raw = cluster_object(spec)
+        with tempfile.TemporaryDirectory() as d:
+            src, back = os.path.join(d, "in"), os.path.join(d, "out")
+            with open(src, "wb") as f:
+                f.write(raw)
+            base = ["--mon", mon, "-p", str(ec_pids[0]), "--device", device]
+            verbs = {"put": ["put", "rados14", src],
+                     "get": ["get", "rados14", back],
+                     "stat": ["stat", "rados14"], "ls": ["ls"], "df": ["df"]}
+            for verb, argv in verbs.items():
+                rc, text = _cli(rados.main, base + argv)
+                if rc != 0:
+                    raise AssertionError(f"phase 14: rados {verb} exit {rc}")
+                if verb == "stat" and text.split() != ["rados14", "size",
+                                                       str(size)]:
+                    raise AssertionError(f"phase 14: rados stat {text!r}")
+                if verb == "ls" and "rados14" not in text.split():
+                    raise AssertionError("phase 14: rados ls misses the "
+                                         "object")
+            with open(back, "rb") as f:
+                if f.read() != raw:
+                    raise AssertionError("phase 14: rados get returned other "
+                                         "bytes")
+        # every bench object read back, 8 threads
+        keys = [(pid, f"bench14_{pid}_{i}") for pid in ec_pids
+                for i in range(written[pid])]
+        t0 = time.perf_counter()
+
+        def get(t, key):
+            if clis[t].get(key[0], key[1]) != blob:
+                raise AssertionError(f"phase 14: pool {key[0]} {key[1]} "
+                                     f"reads back wrong")
+
+        _pmap(get, keys, len(clis))
+        out["read_back"] = {"objects": len(keys),
+                            "wall_s": time.perf_counter() - t0}
+    k1, k2, k3 = swap_launch_counts((0, 0, 0))
+    booked = _engine_ops() - ops0
+    calls = {f"{r}_{k}": tally.get(r, k) for r in ("k1", "k3")
+             for k in ("encode", "decode")}
+    # phase 13's counts back, with this phase's and any launched since
+    with gf2_kernels.COUNT_LOCK:
+        set_launch_counts(tuple(a + b + c for a, b, c in zip(
+            saved, (k1, k2, k3), launch_counts())))
+    if (k1 != calls["k1_encode"] + calls["k1_decode"]
+            or k3 != calls["k3_encode"] + calls["k3_decode"]
+            or k1 + k3 != booked or k2 or k1 < 1 or k3 < 1):
+        raise AssertionError(f"phase 14: launches (K1, K2, K3) "
+                             f"{(k1, k2, k3)}, engine calls {calls}, "
+                             f"booked {booked}")
+    out["launches"] = {"k1": k1, "k3": k3, **calls}
+    # every shard of every object in every store, against the CPU
+    t0 = time.perf_counter()
+    digests = {key: (d.result() if hasattr(d, "result") else d)
+               for key, d in digests.items()}
+    expected[(ec_pids[0], "rados14")] = digests["rados14"]
+    for pid, oid in keys:
+        expected[(pid, oid)] = digests[pid]
+    mine = dict.fromkeys(keys + [(ec_pids[0], "rados14")])
+    _wait_for(lambda: cluster_landed(cl, mine, profiles),
+              "phase 14: the bench's shards never all landed")
+    held = check_cluster_shards(cl, expected, "phase 14")
+    out["shards_checked"] = len(held)
+    out["check_s"] = time.perf_counter() - t0
+    # ceph_cli, then telemetry over the admin sockets, once the ops the
+    # bench left slow (SLOW_OPS) and its shards' recovery have cleared:
+    # `health` exits 1 on anything but HEALTH_OK
+    t0 = time.perf_counter()
+    cl.wait_for_health_ok(timeout=CLUSTER_WAIT)
+    out["health_wait_s"] = time.perf_counter() - t0
+    verbs = (["--mon", quorum, "status"], ["--mon", quorum, "health"],
+             ["--mon", quorum, "df"], ["--mon", quorum, "osd", "tree"],
+             ["--mon", quorum, "pool", "ls"],
+             ["--asok-dir", cl.asok_dir, "balancer", "status"],
+             ["dencoder", "list"])
+    for argv in verbs:
+        rc, text = _cli(ceph_cli.main, argv)
+        if rc != 0 or not text.strip():
+            raise AssertionError(f"phase 14: ceph_cli {argv} exit {rc}: "
+                                 f"{text[-2000:]}")
+    out["ceph_cli"] = [" ".join(v[2:] if v[0].startswith("--") else v)
+                       for v in verbs]
+    rc, text = _cli(telemetry.main, ["--asok-dir", cl.asok_dir, "snapshot"])
+    snap = json.loads(text)
+    if rc != 0 or snap["unreachable"] or len(snap["daemons"]) < len(cl.osds):
+        raise AssertionError(f"phase 14: telemetry snapshot exit {rc}, "
+                             f"unreachable {snap.get('unreachable')}")
+    rc, text = _cli(telemetry.main, ["--asok-dir", cl.asok_dir, "prom"])
+    out["prom_samples"] = check_exposition(text)
+    if rc != 0 or out["prom_samples"] < 1:
+        raise AssertionError(f"phase 14: telemetry prom exit {rc}")
+    rc, text = _cli(telemetry.main, ["--asok-dir", cl.asok_dir, "latency",
+                                     "--json"])
+    if rc != 0:
+        raise AssertionError(f"phase 14: telemetry latency exit {rc}")
+    out["cluster_latency"] = stage_split(json.loads(text))
+    out["daemons"] = len(snap["daemons"])
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("cluster_stages: " + json.dumps({"card": card, "pools": {
+        f"{pid}:{CLUSTER_EC[i][1]}": stages[pid]
+        for i, pid in enumerate(ec_pids)},
+        "all_traces": out["cluster_latency"]}))
+    return out
 
 
 def main():
@@ -4767,14 +5252,28 @@ def main():
         k1["launches"] += wire_k1
         k3["launches"] += wire_k3
 
+        # rados bench's CLI on its own cluster, before phase 13's is up
+        # (the profiler's bursts sample every thread of the process):
+        # every count at 0 before each run, K1's launches asserted
+        # against the EC engine's calls, every 8th against the plain
+        # version
+        bench, bench_k1 = phase_rados_bench(dev, card)
+        k1["launches"] += bench_k1
+
         # a live cluster: every count at 0 before it, K1's and K3's
         # launches asserted against the EC engine's calls, K2's against
-        # the balancer's map_all calls
+        # the balancer's map_all calls; phase 14's tools run on it before
+        # its shutdown, their counts at 0 before them
+        def tools(cl, clis, profiles, expected):
+            return phase_tools(cl, clis, profiles, expected, pool, card)
+
         set_launch_counts((0, 0, 0))
-        cluster, (cl_k1, cl_k2, cl_k3) = phase_cluster(dev, card, pool)
+        cluster, (cl_k1, cl_k2, cl_k3) = phase_cluster(dev, card, pool,
+                                                       tools=tools)
         cluster["launches"].update(k2=cl_k2)
         for k, n in zip((k1, k2, k3), (cl_k1, cl_k2, cl_k3)):
             k["launches"] += n
+        live = cluster.pop("tools")
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
     for k in (k1, k2, k3):
@@ -4809,6 +5308,11 @@ def main():
     log("wire_phase: " + json.dumps(
         {key: wire[key] for key in ("card", "phase_s", "launches", "asok")}))
     log("cluster_phase: " + json.dumps(cluster))
+    log("tools_phase: " + json.dumps({
+        "card": card, "phase_s": bench["phase_s"] + live["phase_s"],
+        "rados_bench_s": bench["phase_s"], "live_s": live["phase_s"],
+        "launches": {"k1": bench_k1 + live["launches"]["k1"],
+                     "k3": live["launches"]["k3"]}, "live": live}))
     log(f"gpu: {card}")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -103,6 +103,8 @@ def test_port_never_imports_jax_or_the_jax_package(tmp_path):
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
         "    importlib.import_module(name)\n"
+        "from ceph_tpu_torch.analysis import wirecheck\n"
+        "assert len(wirecheck.entries()) == 19\n"
         "bad = [m for m in sys.modules if m == 'jax' or\n"
         "       m.startswith('jax.') or m == 'ceph_tpu' or\n"
         "       m.startswith('ceph_tpu.')]\n"
@@ -160,7 +162,10 @@ def test_port_never_imports_jax_or_the_jax_package(tmp_path):
                  "services.heartbeat", "services.map_follower",
                  "services.monitor", "services.osd_service",
                  "services.client", "services.cluster",
-                 "services.striper", "services.image", "mgr.daemon"):
+                 "services.striper", "services.image", "mgr.daemon",
+                 "common.counters", "common.attribution",
+                 "analysis.wirecheck", "tools.telemetry", "tools.rados",
+                 "tools.rados_bench", "tools.ceph_cli"):
         assert "ceph_tpu_torch." + name in modules
 
 
