@@ -29,6 +29,8 @@ import threading
 import time
 from typing import Dict, Iterable, Optional
 
+from .analysis.lockdep import make_lock
+
 PKG = pathlib.Path(__file__).resolve().parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
@@ -43,7 +45,7 @@ GXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-fopenmp", "-shared")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-_lock = threading.Lock()
+_lock = make_lock("build::libs")
 _libs: Dict[str, ctypes.CDLL] = {}
 
 

@@ -32,11 +32,11 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
-import threading
 
 import torch
 
 from .. import build
+from ..analysis.lockdep import make_lock
 from .layout import Layout
 
 MAX_K = 32   # input rows: the kernel's table of row pointers
@@ -45,7 +45,7 @@ MAX_BATCH = 65535  # stripes per launch
 
 
 # guards the wrappers' launch counts (K1's here, K3's in gf2_packet)
-COUNT_LOCK = threading.Lock()
+COUNT_LOCK = make_lock("ec::launch_count")
 
 
 def gf2_matmul_w8_plain(bm_bits: torch.Tensor,

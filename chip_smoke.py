@@ -55,7 +55,7 @@ Phases (any failure raises and the script exits non-zero):
    more per pool, again after an upmap edit and ``refresh_tables``;
    then ``map_all`` is timed per pool (PGs/s).
 6. The upmap balancer, with K2's launch count set to 0 again.  (a)
-   ``run_offline`` (max_deviation 1, 10 iterations, 10 rounds, seed 10,
+   ``run_offline`` (max_deviation 1, 10 iterations, 3 rounds, seed 10,
    patience 2) on ``make_synthetic_map``'s 1,000 OSDs (250 hosts, 25
    racks, 1x/2x/4x weights, ssd and hdd classes: pool 1 of 32,768 PGs on
    the plain rule, pools 2 and 3 of 8,192 on the class rules, through
@@ -81,7 +81,7 @@ Phases (any failure raises and the script exits non-zero):
    the card for seven profiles (``BASELINE.json`` configs 2-4: jerasure
    reed_sol_van 4+2, isa 8+3, lrc 4/2/3; the corpus's shec 4/3/2 and
    clay 4+2; isa cauchy 8+3, jerasure reed_sol_r6_op 8+2): encode of a
-   4 MiB object 200 times, decode of 200 random single erasures and of
+   4 MiB object 100 times, decode of 100 random single erasures and of
    every set of m erasures (c for SHEC); ``encode_batched`` of 64 x 4
    MiB objects (isa 8+3); ``ec_non_regression --check`` of the five w=8
    corpus directories.  Then, with the kernel's calls tapped and not
@@ -156,7 +156,7 @@ Phases (any failure raises and the script exits non-zero):
    map through its bytes, on every PG of every pool, and the scalar
    ``pg_to_up_acting_osds`` (CRUSH stage on the native engine; 64 PGs a
    pool through mapper_ref itself) on the epoch's exception PGs, up to
-   4,096 on changed OSDs and 4,096 random ones; its map encodes to the
+   2,048 on changed OSDs and 2,048 random ones; its map encodes to the
    primary's bytes.  Then a second follower, with the oracle's workers
    idle, times each epoch on the host clock (decode, apply, the mappers,
    ``map_all`` of every pool), and ``map_all`` and K2 per pool by CUDA
@@ -167,7 +167,7 @@ Phases (any failure raises and the script exits non-zero):
    ``Context`` (its Config, tracer and perf collection, an admin socket,
    a ``Throttle`` on ``ec_write``) and 16 lossy client messengers.  For
    isa 8+3 (K1) and jerasure cauchy_good 4+2 packetsize 8 (K3), 1, 4
-   and 16 clients each send 32 writes of a 4 MiB object (one of 8 made
+   and 16 clients each send 16 writes of a 4 MiB object (one of 8 made
    from a seed); the primary's handler (``wire_ec_write``) encodes the
    object, a memoryview into its receive segment, through an
    ``EncodeBatcher`` in an ``ec.encode`` span, brings the chunks back in
@@ -187,9 +187,9 @@ Phases (any failure raises and the script exits non-zero):
 13. A live cluster on the card (``phase_cluster``): a ``MiniCluster`` of
    3 monitors and 12 OSDs on 12 hosts with ``device`` the card, a
    replicated pool (size 3), isa 8+3 (K1) and jerasure cauchy_good 4+2
-   packetsize 8 (K3), 32 PGs each.  8 clients write 64 objects of 4 MiB
+   packetsize 8 (K3), 32 PGs each.  8 clients write 16 objects of 4 MiB
    to each EC pool and read them back; one read-modify-write a pool; an
-   image of 64 MiB on the isa pool in 4 MiB objects.  Two OSDs holding
+   image of 16 MiB on the isa pool in 4 MiB objects.  Two OSDs holding
    shards are killed (marked down) one after the other, every object
    read degraded after each; the monitor marks them out after
    ``mon_osd_down_out_interval``, both come back with empty stores and
@@ -207,7 +207,7 @@ Phases (any failure raises and the script exits non-zero):
 14. The cluster tools.  (a) Before phase 13, ``rados_bench``'s CLI in
    this process with its own cluster (4 OSDs, pg_num 16, jerasure
    reed_sol_van 2+1 on K1 on the card) at upstream ``rados bench``'s 4
-   MiB objects and 16 ops in flight, 10 s a run (upstream: 60):
+   MiB objects and 16 ops in flight, 5 s a run (upstream: 60):
    ``seq`` (16 writer threads, then 16 readers) and ``write`` through
    the aio window at queue depth 16, every count at 0 before each.  No
    op class has an error, the copy ledger's engine is ``bitplane``, K1's
@@ -216,7 +216,7 @@ Phases (any failure raises and the script exits non-zero):
    counted); each record prints on a ``rados_bench:`` line.  (b) On
    phase 13's cluster once its balancer round is committed (a hook of
    ``phase_cluster``, before the shutdown), with every count at 0
-   (phase 13's put back after): ``ObjBencher`` write then seq, 10 s
+   (phase 13's put back after): ``ObjBencher`` write then seq, 5 s
    each, 4 MiB objects, 16 in flight, on the isa 8+3 (K1) and
    cauchy_good 4+2 (K3) pools; ``rados`` put/get/stat/ls/df of a 4 MiB
    object on the card; ``ceph_cli`` status, health, df, osd tree, pool
@@ -227,6 +227,26 @@ Phases (any failure raises and the script exits non-zero):
    launches equal the EC engine's calls by route; each pool's writes
    fold into stages (``common/attribution.py``) with at most 10%
    unattributed, printed on a ``cluster_stages:`` line.
+15. The failure drills of ``ceph_tpu_torch/tools/thrasher.py`` on the
+   card (``phase_drills``), at the reference CLI's defaults (seed 8),
+   every launch count at 0 before each.  In this process, with every K1
+   and K2 launch held to its plain version (``SampledTap`` at every
+   launch, ``K2Tap``; not counted), K1's launches equal to the EC
+   engine's calls and K2's to ``PoolMapper.map_all``'s: (a) the chaos
+   soak (5 OSDs, 1 mon, 20 s; writers on a replicated pool and on
+   jerasure reed_sol_van 2+1 on K1 while OSDs are killed and revived and
+   frames dropped, corrupted and duplicated; the active balancer's
+   sweeps on K2); (b) the whole-host kill at recovery pipeline depths 1
+   and 3, then the degraded-read soak on a 2+2 pool with shard-read
+   EIOs armed; (c) the netsplit drills and the slow-ops drill.  Then (d)
+   ``--loop-stall`` and ``--race-audit`` as subprocesses of the CLI,
+   both at once (their checkers read their switches at import), each
+   record read back from ``chiprun_out/``.  Every durability and correctness
+   verdict is asserted (no acked write lost, convergence, no false
+   markdown, OSD_FLAPPING raised and cleared, no lockdep, racecheck or
+   span leak, no balancer proposal while degraded, no static BLOCK001);
+   the speed and overhead gates are measurements, printed with their
+   verdicts on a ``drill:`` line a record.
 
 The scalar oracles run in worker processes (spawned, stopped at the
 end) beside the card's work.
@@ -239,10 +259,10 @@ operations over its peak rate for their type (published H100 SXM
 figures; K1's 1-bit products are counted at the int8 rate, which is
 lower).  It prints
 the card's name and power limit, one line per kernel, one ``kernels``
-JSON line (K1's launches: phases 4, 8, 9, 10, 12, 13 and 14; K2's: phase
-4's, one a ``map_all`` call in phases 5, 6, 11 and 13, one a sweep in
-phase 7, one a rule in phase 8, phase 9's cross-check and one a shard
-in phase 10; K3's: phases 9, 10, 12, 13 and 14), K2's variants, the
+JSON line (K1's launches: phases 4, 8, 9, 10, 12, 13, 14 and 15; K2's:
+phase 4's, one a ``map_all`` call in phases 5, 6, 11, 13 and 15, one a
+sweep in phase 7, one a rule in phase 8, phase 9's cross-check and one
+a shard in phase 10; K3's: phases 9, 10, 12, 13 and 14), K2's variants, the
 flagship rates, the pipeline's rates, the balancer's records and time
 split, crushtool's record, one ``ec_plugins`` line per profile and
 workload, phase 9's ``layouts``, ``k3``, ``words`` and ``spec`` lines,
@@ -250,8 +270,9 @@ phase 10's ``mesh`` lines, phase 11's ``epoch`` lines and its
 ``epochs_phase`` record, phase 12's ``wire`` lines and its
 ``wire_phase`` record, phase 13's ``cluster`` lines and its
 ``cluster_phase`` record, phase 14's ``rados_bench`` and
-``cluster_stages`` lines and its ``tools_phase`` record, and last the
-contract line
+``cluster_stages`` lines and its ``tools_phase`` record, phase 15's
+``drill`` lines and its ``drills_phase`` record, and last the contract
+line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the rest of the repository beside it, it exits non-zero and prints no
 result.
@@ -1223,8 +1244,9 @@ SYNTH = dict(n_osds=1000, osds_per_host=4, hosts_per_rack=10,
              pg_num=32768, seed=10, uneven=True,
              device_classes=["ssd", "hdd"])
 # max_deviation 1 is bench.py's balancer lane; max_iterations 10 is
-# Ceph's upmap_max_optimizations default
-OFFLINE = dict(max_deviation=1, max_iterations=10, max_rounds=10, seed=10,
+# Ceph's upmap_max_optimizations default; 3 rounds (10 until phase 15
+# came: the CPU run of the same rounds is phase 6's longest wait)
+OFFLINE = dict(max_deviation=1, max_iterations=10, max_rounds=3, seed=10,
                patience=2)
 # 6b: osdmaptool --upmap's defaults on pool 1 of phase 5's cluster
 UPMAP_BIG = dict(max_deviation=5, max_iterations=10, only_pools={1})
@@ -1742,7 +1764,7 @@ def phase_crushtool(dev, workdir, card, n_rep=SWEEP_REP, n_ec=SWEEP_EC,
 # -- phase 8 ----------------------------------------------------------
 
 EC_OBJECT = 4 << 20   # the default RADOS object size of RBD and CephFS
-EC_ITERS = 200
+EC_ITERS = 100      # 200 until phase 15 came (PERF.md section 4)
 EC_NATIVE_ITERS = 20  # the native engine's timed calls (encode, random)
 EC_BATCH = 64
 EC_CHECK = 1 << 16    # columns of each K1 product held to its plain version
@@ -3017,8 +3039,9 @@ def phase_mesh(dev, card, m=None):
 EPOCH_POOL3 = dict(pool_id=3, size=3, rule=0, pg_num=8192, pgp_num=8192)
 EPOCH_FULL_EVERY = 8   # a full map goes into the store every 8th epoch
 EPOCH_CHECKPOINT = 12  # the store checkpoints after this many epochs
-EPOCH_RANDOM = 4096    # random PGs a pool and epoch held to the scalar pipeline
-EPOCH_CHANGED = 4096   # at most this many PGs a pool on the epoch's changed OSDs
+EPOCH_RANDOM = 2048    # random PGs a pool and epoch held to the scalar pipeline
+EPOCH_CHANGED = 2048   # at most this many PGs a pool on the epoch's changed OSDs
+#                        (both 4096 until phase 15 came)
 EPOCH_REF = 64         # of the checked PGs, a pool and epoch, through mapper_ref
 EPOCH_ITERS = 8        # timed map_all calls a pool
 EPOCH_CHUNK = 1024     # PGs a scalar oracle task
@@ -3650,7 +3673,7 @@ def phase_epochs(dev, pool, m):
 
 WIRE_OBJECT = EC_OBJECT     # 4 MiB: the default object size of RBD and CephFS
 WIRE_WRITERS = (1, 4, 16)   # client messengers writing at once
-WIRE_WRITES = 32            # writes a client
+WIRE_WRITES = 16            # writes a client (32 until phase 15 came)
 WIRE_OBJECTS = 8            # distinct objects: client c's write i sends
                             # object (7c + i) % 8
 WIRE_CHUNKS_EVERY = 8       # every 8th write's reply carries the chunk bytes
@@ -4072,9 +4095,10 @@ CLUSTER_OSDS = 12          # 12 OSDs on 12 hosts, failure domain host
 CLUSTER_MONS = 3
 CLUSTER_PG_NUM = 32        # Quincy's osd_pool_default_pg_num
 CLUSTER_CLIENTS = 8
-CLUSTER_OBJECTS = 64       # objects written to each EC pool
+CLUSTER_OBJECTS = 16       # objects written to each EC pool (64 until
+#                            phase 15 came: PERF.md section 4)
 CLUSTER_OBJECT = EC_OBJECT  # 4 MiB: RBD's and CephFS's object size
-CLUSTER_IMAGE = 64 << 20   # the image's size, in 4 MiB objects
+CLUSTER_IMAGE = 16 << 20   # the image's size, in 4 MiB objects (was 64 MiB)
 CLUSTER_RMW = (3 << 19, 1 << 20)   # (offset, length) of the overwrite
 CLUSTER_REP = 1            # the replicated pool (size 3)
 CLUSTER_EC = (             # (pool id, profile name, profile, kernel)
@@ -4666,7 +4690,7 @@ def cluster_balancer(cl, conf, dev):
     bal = mgr.modules["balancer"]
     _wait_for(lambda: mgr.epoch >= _map_of(cl).epoch,
               "the mgr has not caught up with the monitor")
-    maps, sent = [], []
+    maps, sent, broke = [], [], []
     real_map_all = PoolMapper.map_all
     real_mon_call = mgr.mon_call
 
@@ -4675,8 +4699,16 @@ def cluster_balancer(cl, conf, dev):
         return real_map_all(self, *a, **kw)
 
     def mon_call(msg, *a, **kw):
-        rep = real_mon_call(msg, *a, **kw)
-        if msg.get("type") == "pg_upmap_items_set":
+        upmap = msg.get("type") == "pg_upmap_items_set"
+        try:
+            rep = real_mon_call(msg, *a, **kw)
+        except Exception as e:
+            # the round stops proposing here; the rest waits for the
+            # next round
+            if upmap:
+                broke.append(((msg["pool"], msg["ps"]), repr(e)))
+            raise
+        if upmap:
             sent.append(((msg["pool"], msg["ps"]), msg["items"], rep))
         return rep
 
@@ -4686,6 +4718,7 @@ def cluster_balancer(cl, conf, dev):
         rounds0 = bal.rounds
         maps.clear()
         sent.clear()
+        broke.clear()
         k2_before = launch_counts()[1]
         PoolMapper.map_all = map_all
         mgr.mon_call = mon_call
@@ -4718,11 +4751,14 @@ def cluster_balancer(cl, conf, dev):
         mapper.crush_rule_batched.launches = k2_offline
         want = diff_upmap_items(old, m_off.pg_upmap_items)
         got = [(pg, [list(p) for p in items]) for pg, items, _r in sent]
-        if got != [(pg, [list(p) for p in items]) for pg, items in want]:
+        # a proposal whose call raised ends the round: what it sent
+        # before must be the offline proposals' first ones
+        held = [(pg, [list(p) for p in items]) for pg, items in want]
+        if got != (held[:len(got)] if broke else held):
             raise AssertionError(f"phase 13: the balancer proposed {got}, "
                                  f"offline calc_pg_upmaps {want}: {rec}")
-        proposed += len(want)
-        refused = [(pg, r) for pg, _i, r in sent if "error" in r]
+        proposed += len(got)
+        refused = [(pg, r) for pg, _i, r in sent if "error" in r] + broke
         if not refused:
             break
         # a commit the monitor aborted (its quorum lapsed under load):
@@ -4752,8 +4788,9 @@ def cluster_balancer(cl, conf, dev):
 # -- phase 14: the cluster tools -----------------------------------------
 BENCH_OBJECT = 4 << 20    # upstream `rados bench`'s object size (-b)
 BENCH_OPS = 16            # and its ops in flight (-t)
-BENCH_SECONDS = 10        # upstream's duration is 60 s
-TOOLS_SECONDS = 10        # ObjBencher's write and seq on phase 13's cluster
+BENCH_SECONDS = 5         # upstream's duration is 60 s (10 until phase 15)
+TOOLS_SECONDS = 5         # ObjBencher's write and seq on phase 13's cluster
+#                           (10 until phase 15)
 TAP_EVERY = 8             # every 8th K1 launch held to the plain version
 TOOLS_UNATTRIBUTED = 0.10  # the most of a write's time no stage may name
 
@@ -4807,12 +4844,15 @@ class SampledTap:
     wrapper counts its launches on the name its module holds, the tap's
     while open; they go to the real wrapper's count on close, and the
     plain version counts none.  Daemon threads call at once, so a
-    mismatch is recorded (``bad``), not raised in the caller's thread."""
+    mismatch is recorded (``bad``), not raised in the caller's thread.
+    ``nbytes`` sums the calls' byte bound: each input row read once,
+    each output row and the bit matrix written or read once."""
 
     def __init__(self, every=TAP_EVERY):
         import threading
 
         self.every, self.calls, self.checked, self.bad = every, 0, 0, []
+        self.nbytes = 0
         self._lock = threading.Lock()
 
     def __enter__(self):
@@ -4825,9 +4865,13 @@ class SampledTap:
 
         def tap(bm, data, fragments=None):
             out = real(bm, data, fragments)
+            k, m = bm.shape[1] // 8, bm.shape[0] // 8
+            cols = data[0].numel() if isinstance(data, (list, tuple)) \
+                else data.numel() // k
             with self._lock:
                 i = self.calls
                 self.calls += 1
+                self.nbytes += (k + m) * cols + bm.numel()
             if i % self.every == 0:
                 rows = torch.stack(list(data)) \
                     if isinstance(data, (list, tuple)) else data
@@ -5138,6 +5182,320 @@ def phase_tools(cl, clis, profiles, expected, pool, card, device="cuda",
     return out
 
 
+# -- phase 15: the failure drills ----------------------------------------
+DRILL_SEED = 8        # the thrasher CLI's default --seed
+DRILL_SOAK_S = 20.0   # and its default --duration (5 OSDs, 1 mon)
+DRILL_CLI_TIMEOUT = 900   # seconds a drill's subprocess may take
+
+
+class K2Tap:
+    """Replaces ``pipeline.crush_rule_batched`` (through which
+    ``PoolMapper.map_all`` launches K2) while open: every launch's rows
+    and lengths are held to ``map_batch_plain`` on the same inputs, on
+    the same device, and every ``map_all`` call is counted.  The real
+    wrapper counts its own launches; the plain version counts none.  The
+    mgr's thread calls, so a mismatch is recorded (``bad``), not
+    raised.  Each launch also counts its bucket draws, whose bound
+    (``k2_bound_ms``) adds to ``bound_ms``."""
+
+    def __enter__(self):
+        import threading
+
+        import torch
+
+        from ceph_tpu_torch.crush import mapper
+        from ceph_tpu_torch.osdmap import pipeline
+
+        self.calls = self.maps = 0
+        self.bound_ms = 0.0
+        self.bad = []
+        self._lock = threading.Lock()
+        self.mod, self.real = pipeline, pipeline.crush_rule_batched
+        self.real_map_all = pipeline.PoolMapper.map_all
+        real, real_map_all = self.real, self.real_map_all
+        plain = mapper.map_batch_plain
+
+        def tap(arrays, prog, weight, xs, draws=None):
+            if draws is None and xs.device.type == "cuda":
+                draws = torch.zeros((xs.numel(), 5), dtype=torch.int32,
+                                    device=xs.device)
+            res, lens = real(arrays, prog, weight, xs, draws)
+            want = plain(arrays, prog, weight, xs)
+            err = max(max_abs_err(res, want[0]), max_abs_err(lens, want[1]))
+            bound = k2_bound_ms(arrays, prog, xs.numel(), weight,
+                                draws)[0] if draws is not None else 0.0
+            with self._lock:
+                self.calls += 1
+                self.bound_ms += bound
+                if err:
+                    self.bad.append((tuple(res.shape), err))
+            return res, lens
+
+        def map_all(pm, *a, **kw):
+            with self._lock:
+                self.maps += 1
+            return real_map_all(pm, *a, **kw)
+
+        self.mod.crush_rule_batched = tap
+        self.mod.PoolMapper.map_all = map_all
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.crush_rule_batched = self.real
+        self.mod.PoolMapper.map_all = self.real_map_all
+        return False
+
+
+def _drill_tapped(label, run):
+    """``run()`` (one drill, in this process) with every launch count at
+    0 and every K1 and K2 launch held to its plain version; asserts K1's
+    launches equal the EC engine's calls (none on K3's route) and K2's
+    the ``map_all`` calls.  Returns (record, seconds, (K1, K2)
+    launches, (K1, K2) launches held, (K1, K2) bound ms of all the
+    launches)."""
+    set_launch_counts((0, 0, 0))
+    t0 = time.perf_counter()
+    with EngineTally() as tally, SampledTap(every=1) as k1tap, \
+            K2Tap() as k2tap:
+        rec = run()
+    took = time.perf_counter() - t0
+    k1, k2, k3 = launch_counts()
+    calls = tally.get("k1", "encode") + tally.get("k1", "decode")
+    routed = tally.get("k3", "encode") + tally.get("k3", "decode")
+    if k1 != calls or k1 != k1tap.calls or k3 or routed:
+        raise AssertionError(f"phase 15: {label} launches (K1, K2, K3) "
+                             f"{(k1, k2, k3)}, EC engine calls {calls} on "
+                             f"K1's route and {routed} on K3's, tapped "
+                             f"{k1tap.calls}")
+    if k2 != k2tap.maps or k2 != k2tap.calls:
+        raise AssertionError(f"phase 15: {label} launched K2 {k2} times "
+                             f"for {k2tap.maps} map_all calls (tapped "
+                             f"{k2tap.calls})")
+    if k1tap.bad or k1tap.checked != k1 or k2tap.bad:
+        raise AssertionError(f"phase 15: {label}: K1 differs from its "
+                             f"plain version on {k1tap.bad[:4]} "
+                             f"({k1tap.checked} of {k1} held), K2 on "
+                             f"{k2tap.bad[:4]}")
+    return rec, took, (k1, k2), (k1tap.checked, k2tap.calls), \
+        (k1tap.nbytes / HBM_BYTES_PER_S * 1e3, k2tap.bound_ms)
+
+
+def _require(label, verdicts, rec):
+    failed = [name for name, held in verdicts.items() if not held]
+    if failed:
+        raise AssertionError(f"phase 15: {label}: {failed} did not hold: "
+                             f"{json.dumps(rec)[:3000]}")
+
+
+def _gate(value, held):
+    """A speed or overhead gate of a record: a measurement, printed
+    with its verdict."""
+    return {"value": value, "met": bool(held)}
+
+
+def _drill_clis(flags, device):
+    """``python -m ceph_tpu_torch.tools.thrasher <flag> --device
+    <device>`` from the repository root (its checkers read their
+    switches at import) for each (flag, series) of ``flags``, all started
+    together; returns {flag: (record, seconds)}.  Every process is
+    stopped before it returns, with the overhead probes each drill
+    starts (each drill leads a process group of its own)."""
+    from ceph_tpu_torch.tools import thrasher
+
+    os.makedirs(thrasher.OUT_DIR, exist_ok=True)
+    n = thrasher.next_run_number(REPO)
+    runs = {}
+    try:
+        for flag, series in flags:
+            out = os.path.join(thrasher.OUT_DIR, f"{series}_r{n:02d}.json")
+            argv = [sys.executable, "-m", "ceph_tpu_torch.tools.thrasher",
+                    flag, "--seed", str(DRILL_SEED), "--device", device,
+                    "--out", out]
+            runs[flag] = (subprocess.Popen(
+                argv, cwd=REPO, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True, start_new_session=True),
+                out, time.perf_counter())
+        done = {}
+        for flag, (proc, out, t0) in runs.items():
+            stdout, stderr = proc.communicate(timeout=DRILL_CLI_TIMEOUT)
+            took = time.perf_counter() - t0
+            summary = (stdout.strip().splitlines() or [""])[-1]
+            log(f"drill {flag}: exit {proc.returncode} in {took:.1f} s: "
+                f"{summary}")
+            if proc.returncode not in (0, 1) or not os.path.exists(out):
+                raise AssertionError(f"phase 15: thrasher {flag} exit "
+                                     f"{proc.returncode}: {stderr[-2000:]}")
+            with open(out) as f:
+                rec = json.load(f)
+            if (proc.returncode == 0) != bool(rec["ok"]):
+                raise AssertionError(f"phase 15: thrasher {flag} exit "
+                                     f"{proc.returncode} with ok "
+                                     f"{rec['ok']}")
+            done[flag] = (rec, took)
+        return done
+    finally:
+        import signal
+
+        for proc, _out, _t0 in runs.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+
+
+def phase_drills(dev, card, device="cuda", soak_s=DRILL_SOAK_S):
+    """Phase 15: every drill of ``ceph_tpu_torch/tools/thrasher.py`` on
+    the card, at the reference CLI's defaults (seed 8).  In this process,
+    each with every launch count at 0 and every K1 and K2 launch held to
+    its plain version (``_drill_tapped``): (a) the chaos soak (5 OSDs, 1
+    mon, ``soak_s`` s; a replicated pool and jerasure reed_sol_van 2+1 on
+    K1, the active balancer's sweeps on K2); (b) ``drill``: the
+    whole-host kill at pipeline depths 1 and 3, then the degraded-read
+    soak on a 2+2 pool; (c) ``netsplit`` and ``slow_ops_drill``.  Then
+    (d) ``--loop-stall`` and ``--race-audit`` as subprocesses of the CLI,
+    both at once (each times its checker's overhead against its own
+    unarmed probes).  Every durability and correctness verdict is asserted; the speed and
+    overhead gates are measurements, printed with their verdicts.
+    Returns (record, (K1, K2) launches)."""
+    from ceph_tpu_torch.tools import thrasher
+
+    t_phase = time.perf_counter()
+    seconds, launches, held, bounds, oks = {}, {}, {}, {}, {}
+
+    def tapped(label, run):
+        rec, seconds[label], launches[label], held[label], bounds[label] = \
+            _drill_tapped(label, run)
+        oks[label] = rec["ok"]
+        return rec
+
+    # (a) the chaos soak
+    chaos = tapped("chaos", lambda: thrasher.soak(
+        seed=DRILL_SEED, duration=soak_s, n_osds=5, n_mons=1,
+        device=device))
+    _require("chaos", {
+        "lost == 0": chaos.get("lost") == 0,
+        "converged": chaos.get("health_converge_s") is not None,
+        "unfired_armed == []": chaos["unfired_armed"] == [],
+        "lockdep_violations == 0": chaos["lockdep_violations"] == 0,
+        "span_leaks == 0": chaos["span_leaks"] == 0,
+        "balancer_degraded_proposals == 0":
+            chaos.get("balancer_degraded_proposals") == 0,
+        "K1 launched": launches["chaos"][0] >= 1,
+        "K2 launched": launches["chaos"][1] >= 1}, chaos)
+    log("drill: " + json.dumps({
+        "card": card, "kind": "chaos", "seconds": seconds["chaos"],
+        "launches": dict(zip(("k1", "k2"), launches["chaos"])),
+        "held": dict(zip(("k1", "k2"), held["chaos"])), **chaos}))
+
+    # (b) the whole-host kill at depths 1 and 3, then the degraded reads
+    rec = tapped("host_kill", lambda: thrasher.drill(seed=DRILL_SEED,
+                                                     device=device))
+    serial, piped, soak = rec["serial"], rec["pipelined"], rec["soak"]
+    _require("host_kill", {
+        "lost == 0 (depth 1)": serial.get("lost", 1) == 0,
+        "lost == 0 (depth 3)": piped.get("lost", 1) == 0,
+        "converge_s (depth 1)": serial.get("converge_s") is not None,
+        "converge_s (depth 3)": piped.get("converge_s") is not None,
+        "read_errors == 0": soak.get("read_errors") == 0,
+        "the soak converged": "error" not in soak,
+        "K1 launched": launches["host_kill"][0] >= 1}, rec)
+    speedup = rec.get("pipeline_speedup")
+    log("drill: " + json.dumps({
+        "card": card, "kind": "drill", "seconds": seconds["host_kill"],
+        "launches": dict(zip(("k1", "k2"), launches["host_kill"])),
+        "held": dict(zip(("k1", "k2"), held["host_kill"])),
+        "recovery_mbps_serial": rec.get("recovery_mbps_serial"),
+        "recovery_mbps": rec.get("recovery_mbps"),
+        "pipeline_speedup": _gate(speedup, (speedup or 0) > 1.5),
+        "detect_s": [serial.get("detect_s"), piped.get("detect_s")],
+        "recover_s": [serial.get("recover_s"), piped.get("recover_s")],
+        "converge_s": [serial.get("converge_s"), piped.get("converge_s")],
+        "recovery_counters": [serial.get("recovery_counters"),
+                              piped.get("recovery_counters")],
+        "read_p50_ms": soak.get("p50_ms"), "read_p99_ms": soak.get("p99_ms"),
+        "reads": soak.get("reads"), "slo": soak.get("slo"),
+        "ok": rec["ok"], "record": rec}))
+
+    # (c) the netsplits and the SLO escalation
+    ns = tapped("netsplit", lambda: thrasher.netsplit(seed=DRILL_SEED,
+                                                      device=device))
+    flap, iso = ns["flap"], ns["isolation"]
+    _require("netsplit", {
+        "lost == 0": ns["lost"] == 0,
+        "false_markdowns == 0": ns["false_markdowns"] == 0,
+        "OSD_FLAPPING raised": flap.get("flapping_raised") is True,
+        "OSD_FLAPPING cleared": flap.get("flapping_cleared") is True}, ns)
+    detect = ns.get("detect_s")
+    log("drill: " + json.dumps({
+        "card": card, "kind": "netsplit", "seconds": seconds["netsplit"],
+        "launches": dict(zip(("k1", "k2"), launches["netsplit"])),
+        "detect_s": _gate(detect, detect is not None
+                          and detect <= iso["detect_bound_s"]),
+        "detect_bound_s": iso["detect_bound_s"],
+        "epoch_churn": ns.get("epoch_churn"),
+        "epoch_churn_dampened_tail": flap.get("epoch_churn_dampened_tail"),
+        "phases_ok": {k: ns[k].get("ok")
+                      for k in ("mon_partition", "isolation", "flap")},
+        "ok": ns["ok"], "record": ns}))
+    slow = tapped("slow_ops", lambda: thrasher.slow_ops_drill(
+        seed=DRILL_SEED, device=device))
+    _require("slow_ops", {"lost == 0": slow["lost"] == 0,
+                          "cleared to HEALTH_OK": slow["cleared"] is True},
+             slow)
+    log("drill: " + json.dumps({
+        "card": card, "kind": "slowops", "seconds": seconds["slow_ops"],
+        "launches": dict(zip(("k1", "k2"), launches["slow_ops"])),
+        "raise_s": slow.get("raise_s"), "clear_s": slow.get("clear_s"),
+        "victim_stall_s": slow.get("victim_stall_s"),
+        "healthy_stall_s": slow.get("healthy_stall_s"),
+        "ok": slow["ok"], "record": slow}))
+
+    # (d) the checkers' drills, each in a process of its own, both at once
+    clis = _drill_clis((("--loop-stall", "ASYNC"), ("--race-audit", "RACE")),
+                       device)
+    stall, seconds["loop_stall"] = clis["--loop-stall"]
+    oks["loop_stall"] = stall["ok"]
+    _require("loop_stall", {
+        "static_violations == 0": stall["static_violations"] == 0,
+        "victim_named": stall["victim_named"] is True,
+        "stall_witnessed": stall["stall_witnessed"] is True,
+        "both_stacks": stall["both_stacks"] is True,
+        "lost == 0": stall["lost"] == 0,
+        "cleared": stall["cleared"] is True}, stall)
+    pct = stall.get("overhead_pct")
+    log("drill: " + json.dumps({
+        "card": card, "kind": "async", "seconds": seconds["loop_stall"],
+        "overhead_pct": _gate(pct, pct is not None and pct < 5.0),
+        "raise_s": stall.get("raise_s"), "clear_s": stall.get("clear_s"),
+        "ok": stall["ok"], "record": stall}))
+    race, seconds["race_audit"] = clis["--race-audit"]
+    oks["race_audit"] = race["ok"]
+    _require("race_audit", {"violations == 0": race["violations"] == 0,
+                            "lost == 0": race["lost"] == 0}, race)
+    pct = race.get("overhead_pct")
+    log("drill: " + json.dumps({
+        "card": card, "kind": "race", "seconds": seconds["race_audit"],
+        "overhead_pct": _gate(pct, pct is not None and pct < 10.0),
+        "phases_ok": {k: v["ok"] for k, v in race["phases"].items()},
+        "ok": race["ok"], "record": race}))
+
+    k1 = sum(n[0] for n in launches.values())
+    k2 = sum(n[1] for n in launches.values())
+    # the least time a launch could take, on average over the phase's
+    # launches (bytes for K1; K2's from its counted draws)
+    per_launch = {
+        name: sum(b[i] for b in bounds.values()) / n if n else None
+        for i, (name, n) in enumerate((("k1", k1), ("k2", k2)))}
+    out = {"card": card, "phase_s": time.perf_counter() - t_phase,
+           "bound_ms_per_launch": per_launch,
+           "seconds": seconds, "ok": oks,
+           "launches": {"k1": k1, "k2": k2,
+                        "by_drill": {d: dict(zip(("k1", "k2"), n))
+                                     for d, n in launches.items()}},
+           "held": {"k1": sum(n[0] for n in held.values()),
+                    "k2": sum(n[1] for n in held.values())}}
+    return out, (k1, k2)
+
+
 def main():
     import tempfile
 
@@ -5276,6 +5634,13 @@ def main():
         live = cluster.pop("tools")
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
+
+    # the failure drills: every count at 0 before each, K1's launches
+    # asserted against the EC engine's calls and K2's against the
+    # balancer's map_all calls, every launch held to its plain version
+    drills, (dr_k1, dr_k2) = phase_drills(dev, card)
+    k1["launches"] += dr_k1
+    k2["launches"] += dr_k2
     for k in (k1, k2, k3):
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was not launched on the "
@@ -5313,6 +5678,7 @@ def main():
         "rados_bench_s": bench["phase_s"], "live_s": live["phase_s"],
         "launches": {"k1": bench_k1 + live["launches"]["k1"],
                      "k3": live["launches"]["k3"]}, "live": live}))
+    log("drills_phase: " + json.dumps(drills))
     log(f"gpu: {card}")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

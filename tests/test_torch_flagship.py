@@ -90,10 +90,10 @@ def test_step_batched_stripes_equal_per_stripe_encode():
 
 
 def test_port_never_imports_jax_or_the_jax_package(tmp_path):
-    """Every module of the port imports without jax or ceph_tpu, and the
-    native engine's host build (into a fresh directory) runs g++ alone:
-    never ``native/Makefile`` or its generator, which imports
-    ceph_tpu."""
+    """Every module of the port imports without jax, ceph_tpu or the
+    repository's ``tools``, and the native engine's host build (into a
+    fresh directory) runs g++ alone: never ``native/Makefile`` or its
+    generator, which imports ceph_tpu."""
     modules = sorted(
         "ceph_tpu_torch." + str(p.relative_to(REPO / "ceph_tpu_torch"))
         .replace(os.sep, ".")[:-3]
@@ -107,7 +107,8 @@ def test_port_never_imports_jax_or_the_jax_package(tmp_path):
         "assert len(wirecheck.entries()) == 19\n"
         "bad = [m for m in sys.modules if m == 'jax' or\n"
         "       m.startswith('jax.') or m == 'ceph_tpu' or\n"
-        "       m.startswith('ceph_tpu.')]\n"
+        "       m.startswith('ceph_tpu.') or m == 'tools' or\n"
+        "       m.startswith('tools.')]\n"
         "assert not bad, bad\n"
         "import pathlib, subprocess\n"
         "from ceph_tpu_torch import build\n"
@@ -125,7 +126,8 @@ def test_port_never_imports_jax_or_the_jax_package(tmp_path):
         "               for c in ran[0]), ran\n"
         "bad = [m for m in sys.modules if m == 'jax' or\n"
         "       m.startswith('jax.') or m == 'ceph_tpu' or\n"
-        "       m.startswith('ceph_tpu.')]\n"
+        "       m.startswith('ceph_tpu.') or m == 'tools' or\n"
+        "       m.startswith('tools.')]\n"
         "assert not bad, bad\n"
         "print(len(sys.modules))\n")
     env = dict(os.environ)
@@ -165,7 +167,7 @@ def test_port_never_imports_jax_or_the_jax_package(tmp_path):
                  "services.striper", "services.image", "mgr.daemon",
                  "common.counters", "common.attribution",
                  "analysis.wirecheck", "tools.telemetry", "tools.rados",
-                 "tools.rados_bench", "tools.ceph_cli"):
+                 "tools.rados_bench", "tools.ceph_cli", "tools.thrasher"):
         assert "ceph_tpu_torch." + name in modules
 
 

@@ -1,13 +1,17 @@
 """The port's host-sync lint (``ceph_tpu_torch.analysis.lint_torch``):
 the port is clean under it, each rule fires on a snippet, the
 suppression mark works, ``__init__`` is exempt, and the command line
-exits 0 on the package and 1 on a bad file.
+exits 0 on the package and 1 on a bad file.  The repository's own
+static lints (``tools/lint_*.py`` but the JAX one) find nothing in the
+port either.
 """
 
 import pathlib
 import subprocess
 import sys
 import textwrap
+
+import importlib
 
 import pytest
 
@@ -24,6 +28,19 @@ def _lint(src, rel=HOT):
 
 def test_the_port_is_clean():
     vs = lint_torch.lint_paths([REPO / "ceph_tpu_torch"])
+    assert vs == [], "\n".join(map(str, vs))
+
+
+@pytest.mark.parametrize("lint", ["lint_async", "lint_concurrency",
+                                  "lint_faults", "lint_obs", "lint_wire",
+                                  "lint_config"])
+def test_the_port_is_clean_under_the_repository_lints(lint):
+    """``tools/lint_jax.py`` has no place here: the port has
+    ``lint_torch``."""
+    if str(REPO) not in sys.path:
+        sys.path.insert(0, str(REPO))
+    mod = importlib.import_module(f"tools.{lint}")
+    vs = mod.lint_paths([REPO / "ceph_tpu_torch"])
     assert vs == [], "\n".join(map(str, vs))
 
 
