@@ -208,12 +208,17 @@ class OpScheduler:
                 self._cv.notify()
         if inline and job():
             # bounded wait failed (Requeue): back through the queue
+            final = False
             with self._cv:
                 if self._running:
                     self.q.enqueue(cls, job, _time.monotonic())
                     self._cv.notify()
                 else:
-                    job(final=True)
+                    final = True
+            if final:
+                # outside the cv, as in _work: the final run can block
+                # on a PG lock or a store write
+                job(final=True)
         done.wait()
         if box[1] is not None:
             raise box[1]

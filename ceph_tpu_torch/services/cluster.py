@@ -199,10 +199,26 @@ class MiniCluster:
                                msg, timeout=timeout)
         return rep
 
+    def _mon_commit(self, msg: Dict, timeout: float = 60.0) -> Dict:
+        """Send a map-changing command and return its reply.  A reply
+        of "lost quorum" (the leader rolled the entry back and
+        abdicated) is sent again once a leader is back, as a client
+        re-sends a command after an election: a profile whose commit
+        aborted must not leave a pool that names it."""
+        deadline = time.monotonic() + timeout
+        while True:
+            rep = self.mon_command(msg)
+            err = rep.get("error") if isinstance(rep, dict) else None
+            if "lost quorum" not in str(err or "") or \
+                    time.monotonic() > deadline:
+                return rep
+            self.wait_for_quorum(
+                timeout=max(0.1, deadline - time.monotonic()))
+
     # -- pool / profile management (mon command surface) ---------------
     def create_replicated_pool(self, pool_id: int, pg_num: int = 8,
                                size: int = 3) -> None:
-        self.mon_command({
+        self._mon_commit({
             "type": "pool_create", "pool_id": pool_id,
             "pool": {"pool_type": POOL_TYPE_REPLICATED, "size": size,
                      "min_size": max(1, size - 1), "pg_num": pg_num,
@@ -211,7 +227,7 @@ class MiniCluster:
     def create_ec_pool(self, pool_id: int, profile_name: str,
                        profile: Dict[str, str],
                        pg_num: int = 8) -> None:
-        self.mon_command({
+        self._mon_commit({
             "type": "ec_profile_set", "name": profile_name,
             "profile": profile})
         from ..ec.registry import profile_factory
@@ -219,7 +235,7 @@ class MiniCluster:
         # only k and n are read here: a CPU code gives them without
         # touching the card
         code = profile_factory(dict(profile), device="cpu")
-        self.mon_command({
+        self._mon_commit({
             "type": "pool_create", "pool_id": pool_id,
             "pool": {"pool_type": POOL_TYPE_ERASURE,
                      "size": code.get_chunk_count(),
@@ -228,11 +244,11 @@ class MiniCluster:
                      "erasure_code_profile": profile_name}})
 
     def delete_pool(self, pool_id: int) -> None:
-        self.mon_command({"type": "pool_delete", "pool_id": pool_id})
+        self._mon_commit({"type": "pool_delete", "pool_id": pool_id})
 
     def reweight_osd(self, osd: int, weight: float) -> None:
         """`ceph osd reweight` (0.0-1.0)."""
-        self.mon_command({"type": "reweight", "osd": osd,
+        self._mon_commit({"type": "reweight", "osd": osd,
                           "weight": int(weight * 0x10000)})
 
     def scrub(self, pool_id: int) -> Dict[int, list]:

@@ -1265,14 +1265,23 @@ class Monitor:
                 # down -> out after the grace window: clearing the
                 # in/out weight is what makes CRUSH remap the osd's
                 # positions so backfill can begin (the reference's
-                # mon_osd_down_out_interval flow)
+                # mon_osd_down_out_interval flow).  Every down, in osd
+                # has a stamp, as the reference's down_pending_out is
+                # filled from the map: one marked down under an earlier
+                # leader starts its clock here, and a stamp stays until
+                # the map has the osd up or out, so an out whose commit
+                # aborted is proposed again on the next tick
+                for osd in range(self.map.max_osd):
+                    if self.map.exists(osd) and not self.map.is_up(osd) \
+                            and self.map.osd_weight[osd] > 0:
+                        self._down_since.setdefault(osd, now)
                 for osd, since in list(self._down_since.items()):
-                    if self.map.is_up(osd):
+                    if not self.map.exists(osd) or \
+                            self.map.is_up(osd) or \
+                            self.map.osd_weight[osd] == 0:
                         del self._down_since[osd]
-                    elif now - since > out_interval and \
-                            self.map.osd_weight[osd] > 0:
+                    elif now - since > out_interval:
                         to_out.append(osd)
-                        del self._down_since[osd]
             # a lost quorum mid-commit raises; the tick thread must
             # survive it (the next leader retries the mark-down)
             try:
@@ -1282,6 +1291,10 @@ class Monitor:
                 for osd in to_out:
                     self.log.dout(1, f"osd.{osd} auto-out")
                     with self._lock:
+                        # it may have re-booted since the scan
+                        if self.map.is_up(osd) or \
+                                self.map.osd_weight[osd] == 0:
+                            continue
                         self._auto_out[osd] = self.map.osd_weight[osd]
                         self.map.osd_weight[osd] = 0
                     self._commit(f"osd.{osd} auto-out")

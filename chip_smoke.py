@@ -1764,7 +1764,8 @@ def phase_crushtool(dev, workdir, card, n_rep=SWEEP_REP, n_ec=SWEEP_EC,
 # -- phase 8 ----------------------------------------------------------
 
 EC_OBJECT = 4 << 20   # the default RADOS object size of RBD and CephFS
-EC_ITERS = 100      # 200 until phase 15 came (PERF.md section 4)
+EC_ITERS = 50       # 200 until phase 15 came, 100 until phase 16
+#                     (PERF.md section 4)
 EC_NATIVE_ITERS = 20  # the native engine's timed calls (encode, random)
 EC_BATCH = 64
 EC_CHECK = 1 << 16    # columns of each K1 product held to its plain version
@@ -4152,6 +4153,11 @@ def cluster_digests(profile, spec):
             for p in range(n)]
 
 
+def cluster_digests_of(items):
+    """``cluster_digests`` of each (profile, spec) of ``items``."""
+    return [cluster_digests(profile, spec) for profile, spec in items]
+
+
 def cluster_shards(cl):
     """{(pool, oid, shard): [(osd, sha256, bytes)]} of every shard in
     every live OSD's store (a shard held twice, by a stray and its new
@@ -4274,12 +4280,12 @@ def _map_of(cl):
     return payload_map(cl.mon_command({"type": "get_map"}))
 
 
-def _wait_for(cond, what, timeout=CLUSTER_WAIT):
+def _wait_for(cond, what, timeout=CLUSTER_WAIT, phase=13):
     """Wait for ``cond()`` (polled every 50 ms) under a deadline."""
     deadline = time.monotonic() + timeout
     while not cond():
         if time.monotonic() > deadline:
-            raise TimeoutError(f"phase 13: {what} after {timeout} s")
+            raise TimeoutError(f"phase {phase}: {what} after {timeout} s")
         time.sleep(0.05)
 
 
@@ -4543,7 +4549,8 @@ def phase_cluster(dev, card, pool=None, osds=CLUSTER_OSDS, mons=CLUSTER_MONS,
             # disks: with 11 of 12 hosts in, CRUSH leaves a position of
             # an 8+3 PG empty, so the pool would never be whole)
             for victim in victims:
-                cl.mon_command({"type": "mark_down", "osd": victim})
+                _committed_after(cl, {"type": "mark_down", "osd": victim},
+                                 phase=13)
             _wait_for(lambda: all(_map_of(cl).osd_weight[v] == 0
                                   for v in victims),
                       "the monitor has not marked the OSDs out")
@@ -4838,7 +4845,8 @@ def check_exposition(text):
 
 
 class SampledTap:
-    """Replaces ``gf2_kernels.gf2_matmul_w8`` while open: every
+    """Replaces K1's wrapper ``gf2_kernels.gf2_matmul_w8`` (``kernel``
+    "k1") or K3's ``gf2_packet.gf2_packet`` ("k3") while open: every
     ``every``-th call (the first included) has its product held byte for
     byte to the plain version on the same inputs, on the same device.  A
     wrapper counts its launches on the name its module holds, the tap's
@@ -4846,49 +4854,69 @@ class SampledTap:
     plain version counts none.  Daemon threads call at once, so a
     mismatch is recorded (``bad``), not raised in the caller's thread.
     ``nbytes`` sums the calls' byte bound: each input row read once,
-    each output row and the bit matrix written or read once."""
+    each output row and the bit matrix (K3: its index lists) written or
+    read once."""
 
-    def __init__(self, every=TAP_EVERY):
+    def __init__(self, every=TAP_EVERY, kernel="k1"):
         import threading
 
         self.every, self.calls, self.checked, self.bad = every, 0, 0, []
+        self.kernel = kernel
         self.nbytes = 0
         self._lock = threading.Lock()
 
-    def __enter__(self):
+    def _record(self, out, data, plain_of, shape, k, m, extra):
         import torch
 
-        from ceph_tpu_torch.ec import gf2_kernels
-
-        self.mod, self.real = gf2_kernels, gf2_kernels.gf2_matmul_w8
-        real, plain = self.real, gf2_kernels.gf2_matmul_w8_plain
-
-        def tap(bm, data, fragments=None):
-            out = real(bm, data, fragments)
-            k, m = bm.shape[1] // 8, bm.shape[0] // 8
-            cols = data[0].numel() if isinstance(data, (list, tuple)) \
-                else data.numel() // k
+        cols = data[0].numel() if isinstance(data, (list, tuple)) \
+            else data.numel() // k
+        with self._lock:
+            i = self.calls
+            self.calls += 1
+            self.nbytes += (k + m) * cols + extra
+        if i % self.every == 0:
+            rows = torch.stack(list(data)) \
+                if isinstance(data, (list, tuple)) else data
+            same = torch.equal(out, plain_of(rows))
             with self._lock:
-                i = self.calls
-                self.calls += 1
-                self.nbytes += (k + m) * cols + bm.numel()
-            if i % self.every == 0:
-                rows = torch.stack(list(data)) \
-                    if isinstance(data, (list, tuple)) else data
-                same = torch.equal(out, plain(bm, rows))
-                with self._lock:
-                    self.checked += 1
-                    if not same:
-                        self.bad.append(tuple(bm.shape) + tuple(rows.shape))
-            return out
+                self.checked += 1
+                if not same:
+                    self.bad.append(shape + tuple(rows.shape))
 
+    def __enter__(self):
+        from ceph_tpu_torch.ec import gf2_kernels, gf2_packet
+
+        if self.kernel == "k1":
+            self.mod, self.name = gf2_kernels, "gf2_matmul_w8"
+            real, plain = gf2_kernels.gf2_matmul_w8, \
+                gf2_kernels.gf2_matmul_w8_plain
+
+            def tap(bm, data, fragments=None):
+                out = real(bm, data, fragments)
+                self._record(out, data, lambda rows: plain(bm, rows),
+                             tuple(bm.shape), bm.shape[1] // 8,
+                             bm.shape[0] // 8, bm.numel())
+                return out
+        else:
+            self.mod, self.name = gf2_packet, "gf2_packet"
+            real, plain = gf2_packet.gf2_packet, gf2_packet.gf2_packet_plain
+
+            def tap(bm, data, w, ps, lists=None):
+                out = real(bm, data, w, ps, lists)
+                self._record(out, data, lambda rows: plain(bm, rows, w, ps),
+                             tuple(bm.shape) + (w, ps), bm.shape[1] // w,
+                             bm.shape[0] // w,
+                             0 if lists is None else 4 * lists.numel())
+                return out
+
+        self.real = real
         tap.launches = 0
         self.tap = tap
-        self.mod.gf2_matmul_w8 = tap
+        setattr(self.mod, self.name, tap)
         return self
 
     def __exit__(self, *exc):
-        self.mod.gf2_matmul_w8 = self.real
+        setattr(self.mod, self.name, self.real)
         self.real.launches += self.tap.launches
         return False
 
@@ -5183,9 +5211,406 @@ def phase_tools(cl, clis, profiles, expected, pool, card, device="cuda",
 
 
 # -- phase 15: the failure drills ----------------------------------------
+DURABLE_OBJECTS = 32      # aio_puts of 4 MiB a pool, from one client
+DURABLE_WINDOW = 16       # client_aio_window (its default)
+DURABLE_DELAY_US = 3000   # both coalescing windows, as ceph_tpu's aio test
+DURABLE_READERS = 4       # clients reading the objects back after the restart
+DURABLE_DIGEST_TASKS = 3  # worker tasks computing the CPU's chunks
+
+
+def _fs_type(path):
+    """The file system type of the mount that holds ``path``."""
+    path = os.path.realpath(path)
+    best, fstype = "", ""
+    with open("/proc/mounts") as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) > 2 and (path == parts[1] or path.startswith(
+                    parts[1].rstrip("/") + "/")) and len(parts[1]) > len(best):
+                best, fstype = parts[1], parts[2]
+    return fstype
+
+
+def local_disk_dir():
+    """(directory, its file system type): the temporary directory,
+    unless it is a RAM file system (``/dev/shm`` among them); then the
+    repository's root."""
+    import tempfile
+
+    base = tempfile.gettempdir()
+    if _fs_type(base) in ("tmpfs", "ramfs"):
+        base = REPO
+    return base, _fs_type(base)
+
+
+class ReviveClock:
+    """Times a reviving OSD's parts while open (only it mounts and
+    starts meanwhile): ``WALStore``'s checkpoint load and WAL replay,
+    and ``OSDService.start``'s boot call to the monitor, its
+    subscription and the first map's install."""
+
+    PARTS = (("os.wal_store", "WALStore", "_load_checkpoint", "load_s"),
+             ("os.wal_store", "WALStore", "_replay_wal", "replay_s"),
+             ("services.osd_service", "OSDService", "start", "start_s"),
+             ("services.osd_service", "OSDService", "mon_call", "boot_s"),
+             ("services.osd_service", "OSDService", "subscribe_all",
+              "subscribe_s"),
+             ("services.osd_service", "OSDService", "_install_map",
+              "install_s"))
+
+    def __enter__(self):
+        import importlib
+
+        self.took, self.real = {}, []
+        for mod, cls, name, key in self.PARTS:
+            klass = getattr(importlib.import_module(
+                f"ceph_tpu_torch.{mod}"), cls)
+            real = getattr(klass, name)
+            # an inherited method is put back by deleting the wrapper
+            self.real.append((klass, name, klass.__dict__.get(name)))
+            self.took[key] = 0.0
+
+            def timed(store, *a, _real=real, _key=key, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _real(store, *a, **kw)
+                finally:
+                    self.took[_key] += time.perf_counter() - t0
+
+            setattr(klass, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for klass, name, own in self.real:
+            if own is None:
+                delattr(klass, name)
+            else:
+                setattr(klass, name, own)
+        return False
+
+
+def _hist_buckets():
+    """The port's ``wal_group_size`` and ``ec_batch_size`` buckets."""
+    from ceph_tpu_torch.ec import engine
+    from ceph_tpu_torch.os import wal_store
+
+    return (list(wal_store._pc.dump()["wal_group_size"]["buckets"]),
+            list(engine._pc.dump()["ec_batch_size"]["buckets"]))
+
+
+def _shard_digests(svc):
+    """{(collection, name): sha256} of an OSD's store."""
+    import hashlib
+
+    st = svc.store
+    return {(cid, name): hashlib.sha256(bytes(st.read(cid, name)))
+            .hexdigest() for cid in st.list_collections()
+            for name in st.list_objects(cid)}
+
+
+def _tapped(label, taps, tally):
+    """Each tap's launches equal its route's EC engine calls, and every
+    held product equals the plain version."""
+    for tap in taps:
+        calls = tally.get(tap.kernel, "encode") + \
+            tally.get(tap.kernel, "decode")
+        if tap.calls != calls or tap.bad:
+            raise AssertionError(
+                f"phase 16: {label}: {tap.kernel} made {tap.calls} calls "
+                f"for {calls} EC engine calls; differs from its plain "
+                f"version on {tap.bad[:4]}")
+
+
+def phase_durable(dev, card, pool=None, osds=CLUSTER_OSDS,
+                  mons=CLUSTER_MONS, pg_num=CLUSTER_PG_NUM,
+                  objects=DURABLE_OBJECTS, size=CLUSTER_OBJECT,
+                  readers=DURABLE_READERS):
+    """Phase 16: the durable, pipelined write path on ``dev``.
+
+    A WAL-backed ``MiniCluster`` (``mons`` monitors, ``osds`` OSDs on
+    as many hosts, each store a ``WALStore`` and each monitor's epochs
+    under one directory on the local disk) with phase 13's two EC pools
+    (isa 8+3 on K1, jerasure cauchy_good 4+2 packetsize 8 on K3) of
+    ``pg_num`` PGs.  One client issues ``objects`` ``aio_put``s of
+    ``size`` seeded bytes a pool through its aio window
+    (``DURABLE_WINDOW``), with both coalescing windows at
+    ``DURABLE_DELAY_US``, then flushes: the WAL's group commit and the
+    ``EncodeBatcher`` must both form groups past depth 1, K1's and K3's
+    launches must equal the batcher's groups (every ``TAP_EVERY``-th
+    held to its plain version), and every shard in every store must
+    equal the CPU's chunk (computed in ``pool``'s workers when given).
+    Then an OSD holding shards of both pools is killed and revived: it
+    remounts from its WAL with no object recovered, keeps every shard it
+    had and every object reads back.  Then the leader monitor is killed
+    and revived, and a command commits at a newer epoch.  Returns
+    (report, (K1, K3) launches of the phase)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from ceph_tpu_torch.common.config import Config
+    from ceph_tpu_torch.services.cluster import MiniCluster
+
+    t_phase = time.perf_counter()
+    conf = Config()
+    # phase 13's settings: sparse pings, no mark-down behind the
+    # phase's back, long monitor leases
+    conf.set("osd_heartbeat_interval", 5.0)
+    conf.set("osd_heartbeat_grace", 600.0)
+    conf.set("osd_heartbeat_ping_threshold_ms", 30000.0)
+    conf.set("mon_lease", 3.0)
+    conf.set("mon_election_timeout", 3.0)
+    conf.set("mon_osd_down_out_interval", 3600.0)
+    conf.set("client_aio_window", DURABLE_WINDOW)
+    conf.set("wal_group_commit_max_delay_us", DURABLE_DELAY_US)
+    conf.set("ec_encode_batch_max_delay_us", DURABLE_DELAY_US)
+    base, fstype = local_disk_dir()
+    root = tempfile.mkdtemp(prefix="chip-smoke-durable-", dir=base)
+    out = {"card": card, "osds": osds, "mons": mons, "pg_num": pg_num,
+           "objects_per_pool": objects, "object_bytes": size,
+           "aio_window": DURABLE_WINDOW, "delay_us": DURABLE_DELAY_US,
+           "data_fs": fstype}
+    profiles = {pid: prof for pid, _n, prof, _k in CLUSTER_EC}
+    specs = {(pid, f"obj{i}"): ("rng", (16, pid, i), size)
+             for pid in profiles for i in range(objects)}
+    # the CPU's chunks in DURABLE_DIGEST_TASKS of the oracle's workers,
+    # while the cluster boots (the others' cores are left to it)
+    keys = sorted(specs)
+    tasks = [keys[i::DURABLE_DIGEST_TASKS]
+             for i in range(DURABLE_DIGEST_TASKS)]
+    futures = [pool.submit(cluster_digests_of, [
+        (profiles[key[0]], specs[key]) for key in part])
+        for part in tasks] if pool is not None else None
+    cl = MiniCluster(n_osds=osds, config=conf, n_mons=mons, data_dir=root,
+                     device=dev).start()
+    down = False
+    try:
+        out["boot_s"] = time.perf_counter() - t_phase
+        for pid, name, prof, _k in CLUSTER_EC:
+            cl.create_ec_pool(pid, name, dict(prof), pg_num=pg_num)
+        out["pools_s"] = time.perf_counter() - t_phase - out["boot_s"]
+        cl.wait_for_health_ok(timeout=CLUSTER_WAIT)
+        cli = cl.client("durable")
+        out["setup_s"] = time.perf_counter() - t_phase
+        raws = {key: cluster_object(spec) for key, spec in specs.items()}
+
+        # 1. the aio burst: every launch count at 0 before it
+        set_launch_counts((0, 0, 0))
+        wal0, ec0 = _hist_buckets()
+        done = {}
+        with KernelClock(dev) as clock:
+            with EngineTally() as tally, SampledTap(kernel="k1") as t1, \
+                    SampledTap(kernel="k3") as t3:
+                enq = {}
+                t0 = time.perf_counter()
+                comps = {}
+                for key in sorted(specs):
+                    comps[key] = cli.aio_put(
+                        key[0], key[1], raws[key],
+                        on_complete=lambda c, key=key: done.__setitem__(
+                            key, time.perf_counter()))
+                    enq[key] = time.perf_counter()
+                cli.flush(timeout=CLUSTER_WAIT)
+                wall = time.perf_counter() - t0
+            k1, _k2, k3 = launch_counts()
+            clock.recording = False
+            errors = {f"{p}/{o}": repr(c.error) for (p, o), c in comps.items()
+                      if not c.done() or c.error is not None}
+            if errors:
+                raise AssertionError(f"phase 16: aio_puts failed: "
+                                     f"{dict(list(errors.items())[:4])}")
+            wal1, ec1 = _hist_buckets()
+            wal_h = [b - a for a, b in zip(wal0, wal1)]
+            ec_h = [b - a for a, b in zip(ec0, ec1)]
+            groups = sum(ec_h)
+            lat = [max(0.0, done[key] - enq[key]) for key in specs]
+            out["write"] = {
+                "writes": len(specs), "wall_s": wall,
+                "writes_per_s": len(specs) / wall,
+                "object_GB_per_s": len(specs) * size / wall / 1e9,
+                **_ms_stats(lat), "wal_group_size": wal_h,
+                "ec_batch_size": ec_h, "groups": groups,
+                "k1_launches": k1, "k3_launches": k3,
+                "k1_checked": t1.checked, "k3_checked": t3.checked,
+                "k1_bound_ms": t1.nbytes / HBM_BYTES_PER_S * 1e3,
+                "k3_bound_ms": t3.nbytes / HBM_BYTES_PER_S * 1e3}
+            log("durable: writes " + json.dumps(out["write"]))
+            if sum(wal_h[1:]) < 1 or sum(ec_h[1:]) < 1:
+                raise AssertionError(f"phase 16: no group past depth 1: "
+                                     f"wal_group_size {wal_h}, "
+                                     f"ec_batch_size {ec_h}")
+            # one launch a batcher group (a decode would come from a
+            # recovery pass rebuilding a sub-write that timed out: counted
+            # apart)
+            encodes = tally.get("k1", "encode") + tally.get("k3", "encode")
+            decodes = tally.get("k1", "decode") + tally.get("k3", "decode")
+            out["write"]["decodes"] = decodes
+            if k1 < 1 or k3 < 1 or encodes != groups or \
+                    k1 + k3 != encodes + decodes:
+                raise AssertionError(f"phase 16: launches K1 {k1}, K3 {k3} "
+                                     f"for {groups} batcher groups "
+                                     f"({encodes} encodes, {decodes} "
+                                     f"decodes)")
+            _tapped("the writes", (t1, t3), tally)
+            if min(t1.checked, t3.checked) < 1:
+                raise AssertionError("phase 16: no launch was held to its "
+                                     "plain version")
+
+            # every shard in every store equals the CPU's chunk
+            t0 = time.perf_counter()
+            _wait_for(lambda: cluster_landed(cl, specs, profiles),
+                      "the writes' shards never all landed", phase=16)
+            expected = {}
+            for i, part in enumerate(tasks):
+                got = futures[i].result() if futures is not None else \
+                    cluster_digests_of([(profiles[key[0]], specs[key])
+                                        for key in part])
+                expected.update(zip(part, got))
+            held = check_cluster_shards(cl, expected, "phase 16")
+            out["shards_checked"] = len(held)
+            out["check_s"] = time.perf_counter() - t0
+
+            # 2. an OSD that holds shards of both pools: killed, revived
+            counts = {}
+            for (pid, oid, _s), holders in held.items():
+                for osd in holders:
+                    counts.setdefault(osd, set()).add(pid)
+            victim = min(o for o, pids in counts.items()
+                         if pids == set(profiles))
+            before = _shard_digests(cl.osds[victim])
+            set_launch_counts((0, 0, 0))
+            with EngineTally() as tally2, SampledTap(kernel="k1") as r1, \
+                    SampledTap(kernel="k3") as r3:
+                t0 = time.perf_counter()
+                cl.kill_osd(victim)
+                t1_ = time.perf_counter()
+                with ReviveClock() as rc:
+                    svc = cl.revive_osd(victim)
+                t2_ = time.perf_counter()
+                after = _shard_digests(svc)
+                cl.wait_for_health_ok(timeout=CLUSTER_WAIT)
+                t3_ = time.perf_counter()
+                clis = [cl.client(f"r{j}") for j in range(readers)]
+                keys = sorted(specs)
+
+                def get(t, key):
+                    t0 = time.monotonic()
+                    if clis[t].get(key[0], key[1]) != raws[key]:
+                        raise AssertionError(f"phase 16: pool {key[0]} "
+                                             f"{key[1]} read back wrong "
+                                             f"after the restart")
+                    return time.monotonic() - t0
+
+                t4_ = time.perf_counter()
+                rlat = _pmap(get, keys, readers)
+                t5_ = time.perf_counter()
+            r_k1, _k2, r_k3 = launch_counts()
+            _tapped("the restart", (r1, r3), tally2)
+            lost = sorted(k for k, d in before.items() if after.get(k) != d)
+            recovered = svc.pc.dump()["recovered_objects"]
+            out["osd_restart"] = {
+                "osd": victim, "shards": len(before),
+                "kill_s": t1_ - t0, "revive_s": t2_ - t1_,
+                "checkpoint_load_s": rc.took["load_s"],
+                "replay_s": rc.took["replay_s"],
+                "revive_parts_s": rc.took,
+                "health_ok_s": t3_ - t2_, "recovered_objects": recovered,
+                "shards_changed": len(lost), "reads": len(keys),
+                "read_wall_s": t5_ - t4_, **_ms_stats(rlat),
+                "k1_launches": r_k1, "k3_launches": r_k3}
+            log("durable: osd restart " + json.dumps(out["osd_restart"]))
+            if recovered != 0 or lost:
+                raise AssertionError(f"phase 16: osd.{victim} recovered "
+                                     f"{recovered} objects and lost "
+                                     f"{lost[:4]}")
+
+            # 3. the leader monitor: killed, revived; a command commits
+            leader = cl.wait_for_quorum(timeout=CLUSTER_WAIT)
+            rank = next(r for r, mon in cl.mons.items() if mon is leader)
+            last = leader.last_committed()
+            t0 = time.perf_counter()
+            cl.kill_mon(rank)
+            cl.wait_for_quorum(timeout=CLUSTER_WAIT)
+            t1_ = time.perf_counter()
+            revived = cl.revive_mon(rank)
+            resumed = revived.last_committed()
+            cl.wait_for_quorum(timeout=CLUSTER_WAIT)
+            t2_ = time.perf_counter()
+            epoch, tries = _committed_after(cl, {
+                "type": "ec_profile_set", "name": "durable-check",
+                "profile": {"k": "2", "m": "1"}})
+            t3_ = time.perf_counter()
+            out["mon_restart"] = {
+                "rank": rank, "last_before": last, "resumed": resumed,
+                "epoch": epoch, "tries": tries, "requorum_s": t1_ - t0,
+                "revive_quorum_s": t2_ - t1_, "commit_s": t3_ - t2_}
+            log("durable: mon restart " + json.dumps(out["mon_restart"]))
+            if not epoch > last or resumed < last:
+                raise AssertionError(f"phase 16: a command committed at "
+                                     f"epoch {epoch} after {last}; the "
+                                     f"revived monitor resumed at {resumed}")
+            down = True
+            t0 = time.perf_counter()
+            _pmap(lambda _t, svc: svc.shutdown(), list(cl.osds.values()),
+                  len(cl.osds))   # each OSD writes its checkpoint
+            cl.osds.clear()
+            cl.shutdown()
+            out["shutdown_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            kernel_ms = clock.ms()
+            out["replay_graph_s"] = time.perf_counter() - t0
+    finally:
+        if not down:
+            cl.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    segs, spans = wire_quiesced()
+    if segs or spans:
+        raise AssertionError(f"phase 16: segments {segs[:4]} held, spans "
+                             f"{[s.name for _, s in spans][:4]} open")
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    out["write"]["kernel_ms"] = kernel_ms
+    out["write"]["kernel_share"] = kernel_ms / 1e3 / out["write"]["wall_s"]
+    out["launches"] = {"k1": k1 + r_k1, "k3": k3 + r_k3}
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, (k1 + r_k1, k3 + r_k3)
+
+
+def _committed_after(cl, msg, timeout=CLUSTER_WAIT, phase=16):
+    """``msg``'s committed epoch, sent again after a reply of "lost
+    quorum" (a leader on a loaded host waited out a peer's accept) as a
+    client would; returns (epoch, tries)."""
+    deadline = time.monotonic() + timeout
+    tries = 0
+    while True:
+        tries += 1
+        cl.wait_for_quorum(timeout=max(0.1, deadline - time.monotonic()))
+        try:
+            rep = cl.mon_command(msg, timeout=30.0)
+        except (OSError, TimeoutError, RuntimeError) as e:
+            rep = {"error": repr(e)}
+        if "epoch" in rep:
+            return rep["epoch"], tries
+        if time.monotonic() > deadline:
+            raise AssertionError(f"phase {phase}: {msg['type']} never "
+                                 f"committed: {rep}")
+
+
 DRILL_SEED = 8        # the thrasher CLI's default --seed
 DRILL_SOAK_S = 20.0   # and its default --duration (5 OSDs, 1 mon)
 DRILL_CLI_TIMEOUT = 900   # seconds a drill's subprocess may take
+DRILL_PROBE_RUNS = 1   # write-bench runs of each overhead probe arm (the
+#                        CLI's best of 3 until phase 16 came: PERF.md
+#                        section 4)
+# the thrasher's CLI with its overhead probes cut to DRILL_PROBE_RUNS (the
+# flag in sys.argv arms the drill's checker when the module is imported)
+_DRILL_LAUNCH = (
+    "import functools, sys\n"
+    "from ceph_tpu_torch.tools import thrasher\n"
+    "thrasher._bench_overhead = functools.partial(\n"
+    "    thrasher._bench_overhead, runs=int(sys.argv[1]))\n"
+    "sys.exit(thrasher.main(sys.argv[2:]))\n")
 
 
 class K2Tap:
@@ -5294,10 +5719,11 @@ def _gate(value, held):
 
 
 def _drill_clis(flags, device):
-    """``python -m ceph_tpu_torch.tools.thrasher <flag> --device
-    <device>`` from the repository root (its checkers read their
-    switches at import) for each (flag, series) of ``flags``, all started
-    together; returns {flag: (record, seconds)}.  Every process is
+    """The thrasher's CLI (``<flag> --device <device>``, its overhead
+    probes at ``DRILL_PROBE_RUNS`` runs an arm) in a process of its own
+    from the repository root (its checkers read their switches at
+    import) for each (flag, series) of ``flags``, all started together;
+    returns {flag: (record, seconds)}.  Every process is
     stopped before it returns, with the overhead probes each drill
     starts (each drill leads a process group of its own)."""
     from ceph_tpu_torch.tools import thrasher
@@ -5308,9 +5734,9 @@ def _drill_clis(flags, device):
     try:
         for flag, series in flags:
             out = os.path.join(thrasher.OUT_DIR, f"{series}_r{n:02d}.json")
-            argv = [sys.executable, "-m", "ceph_tpu_torch.tools.thrasher",
-                    flag, "--seed", str(DRILL_SEED), "--device", device,
-                    "--out", out]
+            argv = [sys.executable, "-c", _DRILL_LAUNCH,
+                    str(DRILL_PROBE_RUNS), flag, "--seed", str(DRILL_SEED),
+                    "--device", device, "--out", out]
             runs[flag] = (subprocess.Popen(
                 argv, cwd=REPO, stdout=subprocess.PIPE,
                 stderr=subprocess.PIPE, text=True, start_new_session=True),
@@ -5632,6 +6058,15 @@ def main():
         for k, n in zip((k1, k2, k3), (cl_k1, cl_k2, cl_k3)):
             k["launches"] += n
         live = cluster.pop("tools")
+
+        # the durable write path (4 MiB aio writes through the WAL's
+        # group commit into batched K1/K3, OSD and monitor restarts):
+        # every count at 0 before it, K1's and K3's launches asserted
+        # against the batcher's groups, every 8th held to the plain
+        # version; the CPU's chunks come from the oracle's workers
+        durable, (du_k1, du_k3) = phase_durable(dev, card, pool)
+        k1["launches"] += du_k1
+        k3["launches"] += du_k3
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
 
@@ -5678,6 +6113,7 @@ def main():
         "rados_bench_s": bench["phase_s"], "live_s": live["phase_s"],
         "launches": {"k1": bench_k1 + live["launches"]["k1"],
                      "k3": live["launches"]["k3"]}, "live": live}))
+    log("durable_phase: " + json.dumps(durable))
     log("drills_phase: " + json.dumps(drills))
     log(f"gpu: {card}")
     log(json.dumps({"ok": True, "device": {

@@ -178,6 +178,34 @@ def test_command_sequence_commits_equal_epochs(sides):
         {k: st_r[k] for k in ("epoch", "up_osds", "num_pools")}
 
 
+def _stable_command(cl, msg):
+    """``msg``'s committed epoch, as a client gets it: once the steady
+    leader is up and every live monitor has committed its last epoch,
+    the command is sent; a reply of "lost quorum" (the leader waited
+    out a peer's accept on a loaded host, rolled back and abdicated)
+    or a call that failed over every monitor is sent again after the
+    next election, until ``WAIT`` has passed."""
+    deadline = time.monotonic() + WAIT
+    last = None
+    while time.monotonic() < deadline:
+        leader = cl.wait_for_quorum(timeout=max(0.1, deadline -
+                                                time.monotonic()))
+        lc = leader.last_committed()
+        if any(m.last_committed() < lc for m in cl.mons.values()):
+            time.sleep(0.02)
+            continue
+        try:
+            rep = cl.mon_command(msg, timeout=WAIT)
+        except (OSError, TimeoutError, RuntimeError) as e:
+            last = e
+            continue
+        if "lost quorum" in str(rep.get("error", "")):
+            last = rep
+            continue
+        return rep["epoch"]
+    raise AssertionError(f"{msg['type']} never committed: {last}")
+
+
 def _quorum_failover(cluster_mod, config_mod):
     """A three-monitor quorum (no OSDs started): the steady leader's
     rank, the rank elected after it is killed, and the epochs of a
@@ -191,15 +219,13 @@ def _quorum_failover(cluster_mod, config_mod):
                 mon.start()
             first = cl.wait_for_quorum(timeout=WAIT)
             rank0 = next(r for r, m in cl.mons.items() if m is first)
-            e0 = cl.mon_command({"type": "ec_profile_set", "name": "a",
-                                 "profile": {"k": "2", "m": "1"}},
-                                timeout=WAIT)["epoch"]
+            e0 = _stable_command(cl, {"type": "ec_profile_set", "name": "a",
+                                      "profile": {"k": "2", "m": "1"}})
             cl.kill_mon(rank0)
             second = cl.wait_for_quorum(timeout=WAIT)
             rank1 = next(r for r, m in cl.mons.items() if m is second)
-            e1 = cl.mon_command({"type": "ec_profile_set", "name": "b",
-                                 "profile": {"k": "2", "m": "1"}},
-                                timeout=WAIT)["epoch"]
+            e1 = _stable_command(cl, {"type": "ec_profile_set", "name": "b",
+                                      "profile": {"k": "2", "m": "1"}})
             lc = {r: m.last_committed() for r, m in cl.mons.items()}
             deadline = time.monotonic() + WAIT
             while min(m.last_committed() for m in cl.mons.values()) < e1:
@@ -216,3 +242,139 @@ def test_three_monitors_reelect_the_same_rank():
     rank0, rank1, e0, e1, live = port
     assert (rank0, rank1, live) == (ref[0], ref[1], ref[4]) == (0, 1, [1, 2])
     assert e1 > e0 > 0
+
+
+def _weights(cl):
+    """The steady leader's committed osd weights."""
+    leader = cl.wait_for_quorum(timeout=WAIT)
+    payload = leader.get_epoch_payload(leader.last_committed())
+    return payload["map"]["osd_weight"]
+
+
+def _down_osds_go_out(cluster_mod, config_mod, window):
+    """A three-monitor quorum (no OSDs started) with four OSDs booted by
+    command.  osd.1 is marked down and the leader's next replication
+    fails once, so its auto-out commit aborts (as when it waits out a
+    peer's accept); once the quorum is back, osd.2 is marked down and
+    the leader, whose replications now all fail, is killed.  Returns
+    the OSDs of {1, 2} that the new leader's map has out, as soon as
+    both are or once ``window`` seconds have passed since the new
+    quorum."""
+    import threading
+
+    conf = config_mod.Config()
+    conf.set("admin_socket", False)
+    # no booted OSD goes stale (none beats): only the two downs count
+    conf.set("osd_heartbeat_interval", 0.5)
+    conf.set("osd_heartbeat_grace", 600.0)
+    conf.set("mon_osd_down_out_interval", 1.0)
+    with tempfile.TemporaryDirectory(prefix="mo", dir="/tmp"):
+        cl = cluster_mod.MiniCluster(n_osds=3, config=conf, n_mons=3)
+        try:
+            for mon in cl.mons.values():
+                mon.start()
+            for d in range(4):
+                _stable_command(cl, {"type": "boot", "osd": d,
+                                     "addr": ["127.0.0.1", 7300 + d]})
+            leader = cl.wait_for_quorum(timeout=WAIT)
+            _stable_command(cl, {"type": "mark_down", "osd": 1})
+            fired = threading.Event()
+            real = leader.quorum.replicate
+
+            def fail_once(v, entry):
+                if fired.is_set():
+                    return real(v, entry)
+                fired.set()
+                return False
+
+            leader.quorum.replicate = fail_once
+            assert fired.wait(WAIT), "no auto-out was proposed"
+            cl.wait_for_quorum(timeout=WAIT)
+            leader = cl.wait_for_quorum(timeout=WAIT)
+            rank = next(r for r, m in cl.mons.items() if m is leader)
+            _stable_command(cl, {"type": "mark_down", "osd": 2})
+            leader.quorum.replicate = lambda v, entry: False
+            cl.kill_mon(rank)
+            cl.wait_for_quorum(timeout=WAIT)
+            deadline = time.monotonic() + window
+            while True:
+                w = _weights(cl)
+                out = {o for o in (1, 2) if w[o] == 0}
+                if out == {1, 2} or time.monotonic() > deadline:
+                    return out
+                time.sleep(0.05)
+        finally:
+            cl.shutdown()
+
+
+def test_down_osds_go_out_after_an_aborted_commit_and_a_new_leader():
+    """The monitor's down -> out clock.  ``ceph_tpu``'s leader drops an
+    OSD's stamp when it proposes the out, so an out whose commit aborts
+    is never proposed again, and a new leader has no stamp for an OSD
+    marked down before it led: both OSDs stay in for good (four out
+    intervals here).  The port stamps every down, in OSD from the map
+    on each tick and keeps the stamp until the map has it up or out,
+    as Ceph's down_pending_out does: both go out."""
+    ref = _down_osds_go_out(r_cluster, r_config, window=4.0)
+    port = _down_osds_go_out(p_cluster, p_config, window=WAIT)
+    assert ref == set()
+    assert port == {1, 2}
+
+
+def _pool_after_an_aborted_profile_commit(cluster_mod, config_mod,
+                                          osdmap_mod):
+    """A three-monitor quorum (no OSDs started) whose leader's next
+    replication fails once: ``create_ec_pool``'s profile commit aborts
+    with "lost quorum".  Returns (the committed pools' profile names,
+    the committed profile names) once the pool is in the map."""
+    import threading
+
+    conf = config_mod.Config()
+    conf.set("admin_socket", False)
+    with tempfile.TemporaryDirectory(prefix="mp", dir="/tmp"):
+        cl = cluster_mod.MiniCluster(n_osds=3, config=conf, n_mons=3)
+        try:
+            for mon in cl.mons.values():
+                mon.start()
+            leader = cl.wait_for_quorum(timeout=WAIT)
+            fired = threading.Event()
+            real = leader.quorum.replicate
+
+            def fail_once(v, entry):
+                if fired.is_set():
+                    return real(v, entry)
+                fired.set()
+                return False
+
+            leader.quorum.replicate = fail_once
+            cl.create_ec_pool(2, "rs21", {"plugin": "jerasure",
+                                          "technique": "reed_sol_van",
+                                          "k": "2", "m": "1"}, pg_num=8)
+            assert fired.is_set()
+            deadline = time.monotonic() + WAIT
+            while True:
+                leader = cl.wait_for_quorum(timeout=WAIT)
+                payload = leader.get_epoch_payload(leader.last_committed())
+                m = osdmap_mod.OSDMap.from_dict(payload["map"])
+                if 2 in m.pools:
+                    return ({p: pool.erasure_code_profile
+                             for p, pool in m.pools.items()},
+                            sorted(payload["ec_profiles"]))
+                assert time.monotonic() < deadline, "no pool 2"
+                time.sleep(0.05)
+        finally:
+            cl.shutdown()
+
+
+def test_ec_pool_keeps_its_profile_after_an_aborted_commit():
+    """``ceph_tpu``'s ``MiniCluster.create_ec_pool`` ignores the
+    monitor's replies: a profile whose commit aborted is rolled back,
+    and the pool that follows names a profile the map lacks (every
+    OSD's recovery pass then fails on it).  The port's harness sends a
+    "lost quorum" command again once a leader is back."""
+    ref = _pool_after_an_aborted_profile_commit(r_cluster, r_config,
+                                                r_osdmap)
+    port = _pool_after_an_aborted_profile_commit(p_cluster, p_config,
+                                                 p_osdmap)
+    assert ref == ({2: "rs21"}, [])
+    assert port == ({2: "rs21"}, ["rs21"])

@@ -399,7 +399,65 @@ def test_op_scheduler_requeue_and_shutdown():
     assert p[1]["client"] >= 3
 
 
-# -- op tracker, throttle, backoff, version ---------------------------
+def _inline_final_run(pkg, wait):
+    """An inline ``submit`` whose job raises ``Requeue`` on its first
+    run, having stopped the scheduler; its final run then blocks on an
+    event the test holds.  Meanwhile another thread asks for
+    ``depths()``, which takes the scheduler's cv.  Returns (whether
+    ``depths()`` returned within ``wait`` s, what it returned, what
+    ``submit`` returned); the event is set before the threads are
+    joined, so nothing is left behind."""
+    s = pkg.opq.OpScheduler(n_workers=1)
+    release, in_final = threading.Event(), threading.Event()
+    runs, got = [], {}
+
+    def fn():
+        runs.append(1)
+        if len(runs) == 1:
+            s.shutdown()          # the scheduler stops meanwhile
+            raise pkg.opq.Requeue()
+        in_final.set()
+        release.wait(60)
+        return "final"
+
+    def submit():
+        got["submit"] = s.submit("client", fn)
+
+    def depths():
+        got["depths"] = s.depths()
+
+    sub = threading.Thread(target=submit)
+    asker = threading.Thread(target=depths)
+    try:
+        sub.start()
+        assert in_final.wait(30), "the final run never started"
+        asker.start()
+        asker.join(wait)
+        returned = not asker.is_alive()
+    finally:
+        release.set()
+        sub.join(30)
+        if asker.ident is not None:
+            asker.join(30)
+        for w in s._workers:
+            w.join(30)
+    assert not sub.is_alive() and not asker.is_alive()
+    return returned, got.get("depths"), got.get("submit"), len(runs)
+
+
+def test_inline_final_run_leaves_the_cv_free():
+    """R4: ``ceph_tpu``'s inline path runs a job's final run (the
+    scheduler stopped while the job waited) inside ``with self._cv``,
+    so every caller of the cv (``depths``, the workers, ``shutdown``)
+    waits for the job; the port runs it outside the cv, as both
+    packages' workers do.  The reference's stall is shown by a bounded
+    wait: ``depths()`` stays blocked for the whole of it."""
+    held = _inline_final_run(J, wait=1.0)
+    free = _inline_final_run(P, wait=30.0)
+    assert held[0] is False
+    assert free[0] is True
+    # once the event is set, both come to the same end
+    assert held[1:] == free[1:] == ({}, "final", 2)
 
 def _masked(obj):
     """Times dropped from tracker dumps (they differ run to run)."""
